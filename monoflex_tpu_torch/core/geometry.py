@@ -1,6 +1,7 @@
-"""Decode half of the geometry codec (counterpart of the decode functions of
-``monoflex_tpu/core/geometry_jax.py``): batched, fixed-shape tensor math on
-packed intrinsics ``calib_params`` = [f_u f_v c_u c_v b_x b_y] per row."""
+"""The geometry codec (counterpart of ``monoflex_tpu/core/geometry_jax.py``):
+batched, fixed-shape tensor math on packed intrinsics ``calib_params`` =
+[f_u f_v c_u c_v b_x b_y] per row.  The decode half serves inference, the
+encode half (``rad_to_matrix``, ``encode_box3d``) the losses."""
 
 from __future__ import annotations
 
@@ -12,6 +13,34 @@ import torch
 PI = math.pi
 ALPHA_CENTERS = (0.0, PI / 2, PI, -PI / 2)
 
+# corner c of a box takes column _CORNER_INDEX[r][c] of the (+half x4,
+# -half x4) table for axis r (x from l, y from h, z from w): corners 0-3 are
+# the bottom face, 4-7 the top
+_CORNER_INDEX = ((4, 5, 0, 1, 6, 7, 2, 3),
+                 (0, 1, 2, 3, 4, 5, 6, 7),
+                 (4, 0, 1, 5, 6, 2, 3, 7))
+
+
+def rad_to_matrix(rotys: torch.Tensor) -> torch.Tensor:
+    """(N,) yaw -> (N, 3, 3) rotation about the camera Y axis."""
+    cos, sin = torch.cos(rotys), torch.sin(rotys)
+    zeros, ones = torch.zeros_like(cos), torch.ones_like(cos)
+    return torch.stack([torch.stack([cos, zeros, sin], dim=-1),
+                        torch.stack([zeros, ones, zeros], dim=-1),
+                        torch.stack([-sin, zeros, cos], dim=-1)], dim=-2)
+
+
+def encode_box3d(rotys: torch.Tensor, dims: torch.Tensor, locs: torch.Tensor) -> torch.Tensor:
+    """(N,) yaw, (N, 3) dims (l, h, w), (N, 3) 3D centers -> (N, 8, 3)
+    corners in rect coords."""
+    rotys = rotys.reshape(-1)
+    half = dims.reshape(-1, 3) * 0.5
+    plus_minus = torch.cat([half[..., None].expand(-1, 3, 4),
+                            -half[..., None].expand(-1, 3, 4)], dim=-1)     # (N, 3, 8)
+    index = torch.tensor(_CORNER_INDEX, device=plus_minus.device)
+    box_obj = plus_minus.gather(2, index.expand(plus_minus.shape[0], 3, 8))
+    corners = rad_to_matrix(rotys) @ box_obj + locs.reshape(-1, 3)[..., None]
+    return corners.transpose(1, 2)
 
 def decode_depth(depths_offset: torch.Tensor, mode: str = "inv_sigmoid",
                  depth_ref: Sequence[float] = (26.494627, 16.05988),

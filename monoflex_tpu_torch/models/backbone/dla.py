@@ -20,12 +20,13 @@ from torch import nn
 
 from ...ops.dcn import modulated_deform_conv
 from ...ops.dcn_cuda import dcn_forward
+from ..batchnorm import BatchNorm2d
 
 BN_EPS = 1e-5
 
 
-def _bn(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=BN_EPS)
+def _bn(c: int) -> BatchNorm2d:
+    return BatchNorm2d(c, eps=BN_EPS)
 
 
 def _conv_bn_relu(cin: int, cout: int, kernel: int, stride: int = 1) -> List[nn.Module]:
@@ -88,7 +89,12 @@ class Tree(nn.Module):
             x1 = self.tree1(x, residual)
             x2 = self.tree2(x1)
             return self.root([x2, x1] + children)
-        # a deeper tree's own projection feeds nothing: tree1 projects again
+        # a deeper tree's own projection feeds nothing: tree1 projects again.
+        # In train mode the JAX tree still runs it, which folds the batch
+        # statistics into its BN's running stats; so does this one.
+        if self.training and self.project is not None:
+            with torch.no_grad():
+                self.project(bottom)
         x1 = self.tree1(x)
         children.append(x1)
         return self.tree2(x1, children=children)
@@ -123,8 +129,9 @@ class DLA(nn.Module):
 @dataclass(frozen=True)
 class DCNSpec:
     """How one neck stage runs its DCNs: the offset clamp R, the dtype x is
-    rounded to before sampling, and whether CUDA tensors go through the Hopper
-    kernel (True) or the plain PyTorch op (False, the kernel's reference)."""
+    rounded to before sampling, and whether CUDA tensors go through the
+    Hopper kernels (True) or the plain PyTorch op (False, the kernels'
+    reference)."""
 
     max_offset: int
     transfer_dtype: torch.dtype
@@ -133,7 +140,8 @@ class DCNSpec:
 
 class DCN(nn.Module):
     """3x3 modulated deformable conv whose offsets and mask come from a
-    regular conv on the same input (reference: DCNv2's DCN module)."""
+    regular conv on the same input (reference: DCNv2's DCN module).  With the
+    kernels it runs ``dcn_forward``, whose backward is the kernels' too."""
 
     def __init__(self, cin: int, cout: int, spec: DCNSpec):
         super().__init__()
@@ -277,6 +285,9 @@ _IMPLS = {
     "pallas3": (torch.float32, True),
     "shift": (torch.float32, False),
 }
+# TPU.DCN_DX_KERNEL values: three TPU stagings of one dx function, all
+# served by the one kernel dcn_bwd_dx
+DX_KERNELS = ("dx3", "dx4", "dx5")
 
 
 def resolve_dcn_specs(cfg, use_kernel: bool = True) -> Tuple[DCNSpec, ...]:
@@ -284,6 +295,8 @@ def resolve_dcn_specs(cfg, use_kernel: bool = True) -> Tuple[DCNSpec, ...]:
     package resolves its impls (``resolve_dcn_stages``), with the TPU's
     automatic choice (pallas3b) as the default.  ``use_kernel=False`` runs
     the plain op wherever the config names the kernel."""
+    if cfg.TPU.DCN_DX_KERNEL not in DX_KERNELS:
+        raise ValueError(f"TPU.DCN_DX_KERNEL {cfg.TPU.DCN_DX_KERNEL!r}: one of {DX_KERNELS}")
     if cfg.TPU.DCN_FUSE_BN_RELU:
         raise NotImplementedError("TPU.DCN_FUSE_BN_RELU: the fused BN+ReLU epilogue is not ported")
     auto = ({1: "pallas", 2: "pallas2", 3: "pallas3b"}[cfg.TPU.DCN_KERNEL_VERSION]

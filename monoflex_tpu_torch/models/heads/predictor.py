@@ -20,9 +20,10 @@ from torch import nn
 from monoflex_tpu.models.heads.key2channel import Key2Channel
 
 from ...ops.image_ops import gather_edge_features, scatter_add_edge, sigmoid_hm
+from ..batchnorm import BatchNorm1d, BatchNorm2d
 
 
-class NormAct(nn.BatchNorm2d):
+class NormAct(BatchNorm2d):
     """BatchNorm then leaky ReLU (slope 0.01 for InPlaceABN, 0 for ReLU)."""
 
     def __init__(self, channels: int, negative_slope: float):
@@ -44,7 +45,7 @@ def _conv1d_stack(hidden: int, out: int, kernel: int, use_bn: bool,
     the boundary chain; slots 0..3 as in the reference."""
     return nn.Sequential(
         nn.Conv1d(hidden, hidden, kernel, padding=kernel // 2, padding_mode="replicate"),
-        nn.BatchNorm1d(hidden, eps=1e-5) if use_bn else nn.Identity(),
+        BatchNorm1d(hidden, eps=1e-5) if use_bn else nn.Identity(),
         nn.ReLU() if use_relu else nn.Identity(),
         nn.Conv1d(hidden, out, 1))
 

@@ -1,7 +1,8 @@
 """Modulated deformable 3x3 convolution (DCNv2), plain PyTorch.
 
-The CPU path of the DCN and the oracle of the Hopper kernel
-(``ops/dcn_cuda.py``).  Same contract as the JAX package's clamped DCN
+The CPU path of the DCN and the oracle of the Hopper kernels
+(``ops/dcn_cuda.py``): the forward, and its backward as the contract of
+``monoflex_tpu/ops/dcn_pallas_v3.py::dcn_pallas_v3_bwd``.  Same contract as the JAX package's clamped DCN
 (``monoflex_tpu/ops/dcn.py::modulated_deform_conv_shift`` and the Pallas
 ``dcn_pallas_v3``): each learned offset is clamped to [-R, R], the input is
 sampled bilinearly at the 4 corners with zero padding, modulated by the mask
@@ -15,7 +16,7 @@ weight (3,3,C,Co).  Returns (B,H,W,Co) float32.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -24,10 +25,12 @@ _CORNERS = ((0, 0), (0, 1), (1, 0), (1, 1))
 
 
 def check_dcn_inputs(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
-                     weight: torch.Tensor, bias: Optional[torch.Tensor]) -> None:
-    """Raise ValueError unless the operands have the op's shapes and dtypes."""
-    if x.dim() != 4 or x.dtype != torch.float32:
-        raise ValueError(f"x must be float32 (B,H,W,C), got {x.dtype} {tuple(x.shape)}")
+                     weight: torch.Tensor, bias: Optional[torch.Tensor],
+                     x_dtypes: Tuple[torch.dtype, ...] = (torch.float32,)) -> None:
+    """Raise ValueError unless the operands have the op's shapes and dtypes
+    (x in one of ``x_dtypes``, everything else float32)."""
+    if x.dim() != 4 or x.dtype not in x_dtypes:
+        raise ValueError(f"x must be {x_dtypes} (B,H,W,C), got {x.dtype} {tuple(x.shape)}")
     B, H, W, C = x.shape
     expect = {"offset": (offset, (B, H, W, 18)), "mask": (mask, (B, H, W, 9))}
     if weight.dim() != 4 or tuple(weight.shape[:3]) != (3, 3, C):
@@ -51,12 +54,17 @@ def modulated_deform_conv(x: torch.Tensor, offset: torch.Tensor, mask: torch.Ten
 
     transfer_dtype: x is rounded to this dtype before sampling (bf16 mirrors
     the TPU kernel's bf16-shipped x); the arithmetic is float32 either way, so
-    the result equals the float32 op on the rounded x.
+    the result equals the float32 op on the rounded x.  The rounding is
+    straight-through for autograd: dx is the float32 gradient with respect to
+    the rounded x, as the TPU backward returns it, not a bf16-rounded one.
     """
     check_dcn_inputs(x, offset, mask, weight, bias)
     B, H, W, C = x.shape
     Co = weight.shape[3]
-    x = x.to(transfer_dtype).float()
+    if transfer_dtype != torch.float32:
+        # x + (round(x) - x) is exactly round(x): the difference of two
+        # floats within a factor of 2 of each other is exact
+        x = x + (x.to(transfer_dtype).float() - x).detach()
     R = float(max_offset)
     dev = x.device
 
@@ -87,3 +95,35 @@ def modulated_deform_conv(x: torch.Tensor, offset: torch.Tensor, mask: torch.Ten
     if bias is not None:
         out = out + bias
     return out
+
+
+_WRT = ("x", "offset", "mask", "weight")
+
+
+def modulated_deform_conv_backward(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
+                                   weight: torch.Tensor, g: torch.Tensor, *, max_offset: int,
+                                   transfer_dtype: torch.dtype = torch.float32,
+                                   wrt: Tuple[str, ...] = _WRT):
+    """The five gradients of ``modulated_deform_conv`` for the output
+    gradient g (B,H,W,Co): ``(dx, doffset, dmask, dweight, dbias)``, all
+    float32, as ``dcn_pallas_v3_bwd`` returns them.  Those not named in
+    ``wrt`` come back as None (dbias = sum of g is always given).
+
+    - dx is the gradient with respect to the rounded x, so it does not depend
+      on ``transfer_dtype``; dweight, dmask and doffset are evaluated at the
+      rounded x, as the TPU kernel dwmo3 evaluates them.
+    - doffset is the floor-based, one-sided derivative of bilinear sampling
+      (the reference CUDA op's convention), gated by |o| <= R through the
+      clamp.  At integer offsets the TPU kernels' hat-window derivative is 0
+      instead (ROADMAP C1).
+    """
+    leaves = {"x": x.to(transfer_dtype).float(), "offset": offset, "mask": mask,
+              "weight": weight}
+    with torch.enable_grad():
+        leaves = {k: v.detach().requires_grad_(k in wrt) for k, v in leaves.items()}
+        out = modulated_deform_conv(leaves["x"], leaves["offset"], leaves["mask"],
+                                    leaves["weight"], max_offset=max_offset)
+        grads = torch.autograd.grad(out, [leaves[k] for k in wrt], g)
+    got = dict(zip(wrt, grads))
+    return (got.get("x"), got.get("offset"), got.get("mask"), got.get("weight"),
+            g.sum(dim=(0, 1, 2)))

@@ -1,22 +1,28 @@
-"""The Hopper DCNv2 kernel against the port's plain op, on the card.
+"""The Hopper DCNv2 kernels against the port's plain op and its backward, on
+the card.
 
 Needs a CUDA device and nvcc; skipped without a device.  On the GPU
 (``--noconftest``: the test conftest imports jax):
     python -m pytest tests/test_torch_dcn_cuda.py --noconftest -q
 
-Tolerance 1e-4 abs on O(1) outputs: both sides take the same (optionally
-bf16-rounded) x and accumulate in float32; only the summation order differs.
-TF32 is off for the plain op's matmul and for cuDNN.
+Tolerances.  1e-4 abs on the forward's O(1) outputs and on dx, dmask and
+doffset (O(1) to O(10) sums over at most 9*C*16 terms): both sides take the
+same (optionally bf16-rounded) x and accumulate in float32; only the
+summation order differs (and dx's atomics make its order vary from run to
+run).  dW sums over every pixel of the batch (up to 61,440 here), so it is
+held to 1e-5 of its largest element.  TF32 is off for the plain op's matmul
+and for cuDNN.
 """
 
 import pytest
 import torch
 
 from monoflex_tpu_torch.ops import dcn_cuda
-from monoflex_tpu_torch.ops.dcn import modulated_deform_conv
+from monoflex_tpu_torch.ops.dcn import modulated_deform_conv, modulated_deform_conv_backward
 
 pytestmark = pytest.mark.cuda
 ATOL = 1e-4
+DW_RTOL = 1e-5
 
 
 @pytest.fixture
@@ -71,3 +77,59 @@ def test_kernel_rejects_what_it_cannot_take(device):
         dcn_cuda.dcn_forward(x, off.cpu(), mask, w, b, max_offset=2)
     with pytest.raises(ValueError, match="transfer_dtype"):
         dcn_cuda.dcn_forward(x, off, mask, w, b, max_offset=2, transfer_dtype=torch.float16)
+
+
+def grad_errors(got, ref):
+    """Max abs error of (dx, doffset, dmask) and of dW relative to max |dW|."""
+    errs = [(a - b).abs().max().item() for a, b in zip(got[:3], ref[:3])]
+    dw_rel = ((got[3] - ref[3]).abs().max() / ref[3].abs().max()).item()
+    return errs, dw_rel
+
+
+@pytest.mark.parametrize("shape", [(1, 16, 32, 8, 8), (2, 13, 20, 24, 16), (2, 9, 7, 40, 72),
+                                   (8, 48, 160, 128, 64)])
+@pytest.mark.parametrize("R", [1, 2])
+@pytest.mark.parametrize("transfer", [torch.float32, torch.bfloat16])
+def test_backward_kernels_match_plain_backward(device, shape, R, transfer):
+    x, off, mask, w, _ = make_inputs(device, *shape, bias=False)
+    g = torch.randn(*shape[:3], shape[4], device=device,
+                    generator=torch.Generator(device=device).manual_seed(1))
+    xt = x.to(transfer)
+    before = dcn_cuda.dcn_bwd_dx.launches, dcn_cuda.dcn_bwd_dwmo.launches
+    dx = dcn_cuda.dcn_bwd_dx(xt, off, mask, w, g, max_offset=R)
+    dmask, dw, doff = dcn_cuda.dcn_bwd_dwmo(xt, off, mask, w, g, max_offset=R)
+    torch.cuda.synchronize()
+    assert (dcn_cuda.dcn_bwd_dx.launches, dcn_cuda.dcn_bwd_dwmo.launches) == (
+        before[0] + 1, before[1] + 1)
+    rdx, rdoff, rdmask, rdw, _ = modulated_deform_conv_backward(
+        x, off, mask, w, g, max_offset=R, transfer_dtype=transfer)
+    errs, dw_rel = grad_errors((dx, doff, dmask, dw), (rdx, rdoff, rdmask, rdw))
+    assert max(errs) <= ATOL, errs
+    assert dw_rel <= DW_RTOL, dw_rel
+
+
+@pytest.mark.parametrize("transfer", [torch.float32, torch.bfloat16])
+def test_autograd_through_the_kernels(device, transfer):
+    """Every operand of dcn_forward gets its gradient from the backward
+    kernels, equal to autograd of the plain op (P1: the kernel path once
+    returned a result with no grad_fn)."""
+    shape = (2, 13, 20, 24, 16)
+    leaves = [t.requires_grad_() for t in make_inputs(device, *shape)]
+    gy = torch.randn(*shape[:3], shape[4], device=device)
+    counts = [f.launches for f in (dcn_cuda.dcn_forward, dcn_cuda.dcn_bwd_dx,
+                                   dcn_cuda.dcn_bwd_dwmo)]
+    y = dcn_cuda.dcn_forward(*leaves, max_offset=2, transfer_dtype=transfer)
+    assert y.grad_fn is not None
+    got = torch.autograd.grad((y * gy).sum(), leaves)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (dcn_cuda.dcn_forward, dcn_cuda.dcn_bwd_dx,
+                                 dcn_cuda.dcn_bwd_dwmo)] == [c + 1 for c in counts]
+    assert all(t is not None for t in got)
+    ref = torch.autograd.grad(
+        (modulated_deform_conv(*leaves, max_offset=2, transfer_dtype=transfer) * gy).sum(),
+        leaves)
+    x_, off_, mask_, w_, b_ = got
+    errs, dw_rel = grad_errors((x_, off_, mask_, w_), ref[:4])
+    assert max(errs) <= ATOL, errs
+    assert dw_rel <= DW_RTOL, dw_rel
+    assert (b_ - ref[4]).abs().max().item() <= ATOL

@@ -1,6 +1,6 @@
-"""The port runs where jax is not installed: importing its inference path (and
-chip_smoke.py, which drives it on the GPU) loads no jax, flax or triton
-module and builds no kernel."""
+"""The port runs where jax is not installed: importing its inference and
+training paths (and chip_smoke.py, which drives them on the GPU) loads no
+jax, flax or triton module and builds or loads no kernel library."""
 
 import os
 import subprocess
@@ -18,12 +18,16 @@ import chip_smoke
 import monoflex_tpu_torch.config
 import monoflex_tpu_torch.data.synthetic
 import monoflex_tpu_torch.decode.postprocessor
+import monoflex_tpu_torch.losses.loss_computation
 import monoflex_tpu_torch.models.detector
+import monoflex_tpu_torch.ops.rotated_iou
+import monoflex_tpu_torch.train.solver
+import monoflex_tpu_torch.train.train_step
 import monoflex_tpu_torch.utils.param_bridge
 from monoflex_tpu_torch.ops import dcn_cuda
 new = sorted(loaded() - before)
 assert not new, new
-assert dcn_cuda._lib is None, "a kernel was built at import"
+assert dcn_cuda._libs is None, "a kernel library was built or loaded at import"
 print("clean")
 """
 

@@ -88,8 +88,10 @@ def perturbed_port_model(cfg, seed=0):
 
 def to_flax(model, cfg):
     """(params, batch_stats) numpy trees from the port's state dict, through
-    the JAX package's importer (name map + layout converters)."""
-    state = {k: v.numpy() for k, v in model.state_dict().items()}
+    the JAX package's importer (name map + layout converters).  The arrays
+    are copies: jax may take a numpy array without copying it, and a train
+    step of the port updates its BN buffers in place."""
+    state = {k: v.numpy().copy() for k, v in model.state_dict().items()}
     trees = {"params": {}, "stats": {}}
     for torch_name, flax_path in monoflex_name_map(cfg).items():
         _, value = convert_torch_entry(torch_name, state[torch_name])
