@@ -1,15 +1,16 @@
-"""monoflex_tpu_torch: the MonoFlex inference path in PyTorch for NVIDIA Hopper.
+"""monoflex_tpu_torch: MonoFlex in PyTorch for NVIDIA Hopper.
 
 A port of ``monoflex_tpu`` (JAX/Pallas on TPU), which stays beside it as the
 reference.  Modules keep the JAX package's layout so each counterpart is easy
 to find: ``models/backbone/dla.py``, ``models/heads/predictor.py``,
-``ops/dcn.py``, ``decode/postprocessor.py``.  The one Pallas kernel on the
-inference path (the modulated DCNv2 forward of the neck) is a hand-written
-CUDA kernel, ``csrc/dcn_fwd.cu``, built with nvcc at first use.
+``ops/dcn.py``, ``decode/postprocessor.py``, ``train/train_step.py``,
+``engine/inference.py``.  It serves inference, the training step and the
+evaluation path.  The Pallas kernels of the neck's modulated DCNv2 are
+hand-written CUDA kernels in ``csrc/``, built with nvcc at first use.
 
-Nothing here imports jax.  Framework-neutral pieces of the JAX package (the
-config tree, the head key map, the numpy weight-name maps, the KITTI writer)
-are imported from it directly.
+Nothing here imports jax or the JAX package: the framework-neutral pieces
+it needs (the config tree, the head key map, the weight-name maps, the
+numpy geometry, the KITTI reader, loader, writer and evaluator) are copies.
 """
 
 __version__ = "0.1.0"

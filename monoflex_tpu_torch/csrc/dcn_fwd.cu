@@ -2,16 +2,23 @@
 //
 //   y[b,p,:] = sum_k m_k(p) * bilinear0(x_b, p + (ky,kx) + clip(o_k(p), +-R)) . W_k  (+ bias)
 //
+// or, with the fused eval BN+ReLU epilogue (scale and shift given, bias
+// ignored: the caller folds it into shift),
+//
+//   y[b,p,co] = max(acc[b,p,co] * scale[co] + shift[co], 0)
+//
 // Replaces the TPU kernel monoflex_tpu/ops/dcn_pallas_v3.py::dcn_pallas_v3
-// (body _fwd3_kernel).  That kernel builds a (2R+1)^2 window of static shifts
-// weighted by hat functions only because Mosaic cannot gather; the window sum
-// is exactly bilinear sampling at the clamped point with zero padding.  Hopper
-// can gather, so this kernel samples the 4 corners directly.
+// (body _fwd3_kernel, with its epilogue under TPU.DCN_FUSE_BN_RELU).  That
+// kernel builds a (2R+1)^2 window of static shifts weighted by hat functions
+// only because Mosaic cannot gather; the window sum is exactly bilinear
+// sampling at the clamped point with zero padding.  Hopper can gather, so
+// this kernel samples the 4 corners directly.
 //
 // Layouts (as the JAX package's public DCN op): x (B,H,W,C) NHWC in f32 or
 // bf16 (the transfer dtype; math is f32 either way), offset (B,H,W,18)
 // interleaved (dy_k, dx_k), mask (B,H,W,9) post-sigmoid, weight (9,C,Co) f32,
-// bias (Co) f32 or null, out (B,H,W,Co) f32.  All contiguous.
+// bias (Co) f32 or null, scale and shift (Co) f32 or both null, out (B,H,W,Co)
+// f32.  All contiguous.
 //
 // Design.  A block owns TP output pixels x TCO output channels and loops over
 // the 9 taps and over C in chunks of TC.  Per tap it computes each pixel's 4
@@ -24,9 +31,11 @@
 //
 // What bounds it.  The hot layer (8,96,320,64->64) is 2*8*96*320*576*64 =
 // 18 GFLOP against 63 MB of f32 x (31 MB in bf16): ~290 FLOP/byte, so the
-// layer is compute-bound.  This first version does plain f32 FMAs from shared
-// memory (no tensor cores), so it is bound by the FMA rate and shared-memory
-// bandwidth, far below the card's bf16 tensor-core peak.  Moving the tile
+// layer is compute-bound; the epilogue reads two Co-vectors and saves the
+// separate BN and ReLU passes over the output.  This first version does plain
+// f32 FMAs from shared memory (no tensor cores), so it is bound by the FMA
+// rate and shared-memory bandwidth, far below the card's bf16 tensor-core
+// peak.  Moving the tile
 // product onto wgmma with TMA-fed staging is the lever for later work.
 
 #include <cuda_bf16.h>
@@ -46,7 +55,8 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS)
 dcn_fwd_kernel(const T* __restrict__ x, const float* __restrict__ offset,
                const float* __restrict__ mask, const float* __restrict__ weight,
-               const float* __restrict__ bias, float* __restrict__ out,
+               const float* __restrict__ bias, const float* __restrict__ scale,
+               const float* __restrict__ shift, float* __restrict__ out,
                int B, int H, int W, int C, int Co, float R) {
   __shared__ int s_idx[TP][4];          // element offset of each corner's C run
   __shared__ float s_wt[TP][4];         // bilinear weight x mask, 0 outside the map
@@ -147,7 +157,12 @@ dcn_fwd_kernel(const T* __restrict__ x, const float* __restrict__ offset,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int co = co0 + tco + 16 * j;
-      if (co < Co) out[static_cast<long long>(pix) * Co + co] = acc[i][j] + (bias ? bias[co] : 0.f);
+      if (co >= Co) continue;
+      // the epilogue in the order of the TPU kernel: f32 accumulator, then
+      // scale, shift and ReLU before the one write
+      const float v = scale ? fmaxf(acc[i][j] * scale[co] + shift[co], 0.f)
+                            : acc[i][j] + (bias ? bias[co] : 0.f);
+      out[static_cast<long long>(pix) * Co + co] = v;
     }
   }
 }
@@ -156,10 +171,11 @@ dcn_fwd_kernel(const T* __restrict__ x, const float* __restrict__ offset,
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).  The
 // caller checks shapes, dtypes, devices and contiguity, and that every index
-// fits in 32 bits.
+// fits in 32 bits.  scale and shift are both given (the epilogue) or both null.
 extern "C" int dcn_fwd(const void* x, int x_is_bf16, const void* offset, const void* mask,
-                       const void* weight, const void* bias, void* out, int B, int H, int W,
-                       int C, int Co, float max_offset, void* stream) {
+                       const void* weight, const void* bias, const void* scale,
+                       const void* shift, void* out, int B, int H, int W, int C, int Co,
+                       float max_offset, void* stream) {
   const int npix = B * H * W;
   const dim3 grid((npix + TP - 1) / TP, (Co + TCO - 1) / TCO);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -167,13 +183,15 @@ extern "C" int dcn_fwd(const void* x, int x_is_bf16, const void* offset, const v
   const float* m = static_cast<const float*>(mask);
   const float* w = static_cast<const float*>(weight);
   const float* b = static_cast<const float*>(bias);
+  const float* sc = static_cast<const float*>(scale);
+  const float* sh = static_cast<const float*>(shift);
   float* y = static_cast<float*>(out);
   if (x_is_bf16) {
     dcn_fwd_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), off, m, w, b, y, B, H, W, C, Co, max_offset);
+        static_cast<const __nv_bfloat16*>(x), off, m, w, b, sc, sh, y, B, H, W, C, Co, max_offset);
   } else {
     dcn_fwd_kernel<float><<<grid, THREADS, 0, s>>>(
-        static_cast<const float*>(x), off, m, w, b, y, B, H, W, C, Co, max_offset);
+        static_cast<const float*>(x), off, m, w, b, sc, sh, y, B, H, W, C, Co, max_offset);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,8 @@
 """Detection decoding on the device (counterpart of
 ``monoflex_tpu/decode/postprocessor.py``): max-pool NMS -> two-stage top-k ->
 per-peak decode of 2D box, dimensions, orientation and the depth ensemble ->
-back-projection to 3D -> uncertainty-guided confidence.
+back-projection to 3D -> uncertainty-guided confidence -> box NMS when
+TEST.USE_NMS asks for it (``decode/nms.py``).
 
 Fixed shapes: every image yields exactly K rows plus a validity mask
 (score >= threshold).  Head maps come in NCHW.  Top-k is exact: ApproxTopK
@@ -14,10 +15,10 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from monoflex_tpu.models.heads.key2channel import Key2Channel
-
 from ..core import geometry as G
+from ..models.heads.key2channel import Key2Channel
 from ..ops.image_ops import nms_hm, select_point_of_interest, select_topk
+from .nms import apply_nms
 
 # output row layout: [cls, alpha, x1, y1, x2, y2, h, w, l, x, y, z, roty, score]
 RESULT_DIM = 14
@@ -39,8 +40,9 @@ class PostProcessor:
         self.max_detection = cfg.TEST.DETECTIONS_PER_IMG
         self.output_depth = h.OUTPUT_DEPTH
         self.uncertainty_as_conf = cfg.TEST.UNCERTAINTY_AS_CONFIDENCE
-        if cfg.TEST.USE_NMS in ("2d", "3d") and cfg.TEST.NMS_THRESH > 0:
-            raise NotImplementedError(f"TEST.USE_NMS {cfg.TEST.USE_NMS!r}: box NMS is not ported")
+        self.use_nms = cfg.TEST.USE_NMS
+        self.nms_thresh = cfg.TEST.NMS_THRESH
+        self.nms_class_agnostic = cfg.TEST.NMS_CLASS_AGNOSTIC
         self.down_ratio = cfg.MODEL.BACKBONE.DOWN_RATIO
         self.num_bin = cfg.INPUT.ORIENTATION_BIN_SIZE
         self.depth_mode = h.DEPTH_MODE
@@ -156,7 +158,11 @@ class PostProcessor:
         extras["vis_scores"] = vis_scores.reshape(B, K)
         extras["points"] = points.reshape(B, K, 2)
         extras["heatmap"] = predictions["cls"]
-        return result, valid.reshape(B, K), extras
+        valid = valid.reshape(B, K)
+        if self.use_nms in ("2d", "3d") and self.nms_thresh > 0:
+            valid = apply_nms(result, valid, mode=self.use_nms, iou_thresh=self.nms_thresh,
+                              class_agnostic=self.nms_class_agnostic)
+        return result, valid, extras
 
     @staticmethod
     def _oracle_depth(batch, batch_idx, box2d, clses, direct_depth, direct_unc,

@@ -14,9 +14,8 @@ from typing import Dict, Tuple
 
 import torch
 
-from monoflex_tpu.models.heads.key2channel import Key2Channel
-
 from ..core import geometry as G
+from ..models.heads.key2channel import Key2Channel
 from ..ops.image_ops import select_point_of_interest
 from ..ops.rotated_iou import iou_3d_pairs
 from .primitives import (berhu_loss, iou_loss_2d, l1, log_l1_loss, masked_mean,

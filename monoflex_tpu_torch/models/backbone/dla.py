@@ -6,7 +6,9 @@ state dict maps one to one onto the JAX parameter tree
 (``utils/param_bridge.py``).  The trunk is the plain stem: the JAX package's
 packed stem is a TPU relayout with the same math and the same parameters.
 Every projection and node of the neck is a 3x3 modulated DCNv2 whose offsets
-are clamped to +-R; on a CUDA tensor it runs the Hopper kernel.
+are clamped to +-R; on a CUDA tensor it runs the Hopper kernel.  Under
+TPU.DCN_FUSE_BN_RELU an eval-mode block folds its BN and ReLU into the
+kernel's output write.
 """
 
 from __future__ import annotations
@@ -18,8 +20,8 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from ...ops.dcn import modulated_deform_conv
-from ...ops.dcn_cuda import dcn_forward
+from ...ops.dcn import modulated_deform_conv, modulated_deform_conv_bn_relu
+from ...ops.dcn_cuda import dcn_forward, dcn_forward_bn_relu
 from ..batchnorm import BatchNorm2d
 
 BN_EPS = 1e-5
@@ -129,13 +131,15 @@ class DLA(nn.Module):
 @dataclass(frozen=True)
 class DCNSpec:
     """How one neck stage runs its DCNs: the offset clamp R, the dtype x is
-    rounded to before sampling, and whether CUDA tensors go through the
-    Hopper kernels (True) or the plain PyTorch op (False, the kernels'
-    reference)."""
+    rounded to before sampling, whether CUDA tensors go through the Hopper
+    kernels (True) or the plain PyTorch op (False, the kernels' reference),
+    and whether an eval-mode block fuses its BN and ReLU into the DCN's
+    output write."""
 
     max_offset: int
     transfer_dtype: torch.dtype
     use_kernel: bool
+    fuse_bn_relu: bool = False
 
 
 class DCN(nn.Module):
@@ -160,20 +164,34 @@ class DCN(nn.Module):
         self.conv_offset_mask.weight.zero_()
         self.conv_offset_mask.bias.zero_()
 
-    def forward(self, x):
+    def forward(self, x, epilogue: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+        """The DCN of x (NCHW); with ``epilogue`` (scale, shift) it returns
+        relu(DCN(x; no bias) * scale + shift) instead, the fused eval BN+ReLU
+        with the bias already folded into shift."""
         om = self.conv_offset_mask(x).permute(0, 2, 3, 1)   # (B,H,W,27)
         # channels 0-17 are the interleaved offsets, 18-26 the mask logits
         offset = om[..., :18].contiguous()
         mask = torch.sigmoid(om[..., 18:]).contiguous()
-        op = dcn_forward if self.spec.use_kernel else modulated_deform_conv
-        y = op(x.permute(0, 2, 3, 1).contiguous(), offset, mask,
-               self.weight.permute(2, 3, 1, 0).contiguous(), self.bias,
-               max_offset=self.spec.max_offset, transfer_dtype=self.spec.transfer_dtype)
+        args = (x.permute(0, 2, 3, 1).contiguous(), offset, mask,
+                self.weight.permute(2, 3, 1, 0).contiguous())
+        kw = dict(max_offset=self.spec.max_offset, transfer_dtype=self.spec.transfer_dtype)
+        if epilogue is not None:
+            op = dcn_forward_bn_relu if self.spec.use_kernel else modulated_deform_conv_bn_relu
+            y = op(*args, *epilogue, **kw)
+        else:
+            op = dcn_forward if self.spec.use_kernel else modulated_deform_conv
+            y = op(*args, self.bias, **kw)
         return y.permute(0, 3, 1, 2)
 
 
 class DeformConvBlock(nn.Module):
-    """DCN -> BN -> ReLU (reference: DeformConv in dla_dcn.py)."""
+    """DCN -> BN -> ReLU (reference: DeformConv in dla_dcn.py).
+
+    With ``spec.fuse_bn_relu``, eval mode folds the BN (running stats) and
+    the DCN's bias into the kernel's epilogue, as the JAX block does under
+    TPU.DCN_FUSE_BN_RELU: a = gamma * rsqrt(var + eps),
+    b = beta - mean * a + bias * a.  The state dict is the same either way,
+    and train mode always runs the real BN."""
 
     def __init__(self, cin: int, cout: int, spec: DCNSpec):
         super().__init__()
@@ -181,7 +199,12 @@ class DeformConvBlock(nn.Module):
         self.actf = nn.Sequential(_bn(cout), nn.ReLU(inplace=True))
 
     def forward(self, x):
-        return self.actf(self.conv(x))
+        if self.training or not self.conv.spec.fuse_bn_relu:
+            return self.actf(self.conv(x))
+        bn = self.actf[0]
+        a = bn.weight * torch.rsqrt(bn.running_var + bn.eps)
+        b = bn.bias - bn.running_mean * a + self.conv.bias * a
+        return self.conv(x, epilogue=(a, b))
 
 
 class BilinearUp(nn.ConvTranspose2d):
@@ -280,11 +303,21 @@ N_DCN_STAGES = 4  # ida_0 (deepest merge), ida_1, ida_2, final ida_up
 
 # DCN impl name -> (transfer dtype, Hopper kernel).  "pallas3b" is the TPU
 # main path (x shipped in bf16, f32 math); "shift" is the XLA clamped op.
+# The v1 ("pallas") and v2 ("pallas2", "pallas2p") generations are TPU
+# stagings of the same function with float32 x (pallas2p lane-packs C=Co=64
+# layers; v1/v2 split the dmask+dW and doffset backward), so they run the
+# Hopper kernels with float32 transfer.
 _IMPLS = {
     "pallas3b": (torch.bfloat16, True),
     "pallas3": (torch.float32, True),
+    "pallas2p": (torch.float32, True),
+    "pallas2": (torch.float32, True),
+    "pallas": (torch.float32, True),
     "shift": (torch.float32, False),
 }
+# impls whose eval-mode block takes the fused BN+ReLU epilogue under
+# TPU.DCN_FUSE_BN_RELU (the JAX model fuses only into its v3 kernel)
+_FUSABLE = ("pallas3b", "pallas3")
 # TPU.DCN_DX_KERNEL values: three TPU stagings of one dx function, all
 # served by the one kernel dcn_bwd_dx
 DX_KERNELS = ("dx3", "dx4", "dx5")
@@ -293,12 +326,11 @@ DX_KERNELS = ("dx3", "dx4", "dx5")
 def resolve_dcn_specs(cfg, use_kernel: bool = True) -> Tuple[DCNSpec, ...]:
     """The DCNSpec of each neck stage, resolved from the config as the JAX
     package resolves its impls (``resolve_dcn_stages``), with the TPU's
-    automatic choice (pallas3b) as the default.  ``use_kernel=False`` runs
-    the plain op wherever the config names the kernel."""
+    automatic choice (pallas3b) as the default, and DCN_KERNEL_VERSION 1 and
+    2 through their impls.  ``use_kernel=False`` runs the plain op wherever
+    the config names the kernel (fused or not)."""
     if cfg.TPU.DCN_DX_KERNEL not in DX_KERNELS:
         raise ValueError(f"TPU.DCN_DX_KERNEL {cfg.TPU.DCN_DX_KERNEL!r}: one of {DX_KERNELS}")
-    if cfg.TPU.DCN_FUSE_BN_RELU:
-        raise NotImplementedError("TPU.DCN_FUSE_BN_RELU: the fused BN+ReLU epilogue is not ported")
     auto = ({1: "pallas", 2: "pallas2", 3: "pallas3b"}[cfg.TPU.DCN_KERNEL_VERSION]
             if cfg.TPU.USE_PALLAS_DCN else "shift")
     impls = tuple(cfg.TPU.DCN_IMPL_PER_STAGE) or (cfg.TPU.DCN_FORCE_IMPL or auto,) * N_DCN_STAGES
@@ -309,7 +341,8 @@ def resolve_dcn_specs(cfg, use_kernel: bool = True) -> Tuple[DCNSpec, ...]:
             raise NotImplementedError(
                 f"DCN impl {impl!r} is not ported; served: {sorted(_IMPLS)}")
         dtype, kernel = _IMPLS[impl]
-        specs.append(DCNSpec(int(r), dtype, kernel and use_kernel))
+        specs.append(DCNSpec(int(r), dtype, kernel and use_kernel,
+                             bool(cfg.TPU.DCN_FUSE_BN_RELU) and impl in _FUSABLE))
     return tuple(specs)
 
 

@@ -74,10 +74,11 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
             m.reset_parameters(generator)
 
 
-def build_model(cfg, device="cpu", seed: int = 0, use_dcn_kernel: bool = True) -> MonoFlex:
-    """The model of ``cfg`` on ``device``, in eval mode, channels-last, with
-    weights from ``seed``.  ``use_dcn_kernel=False`` runs the plain DCN op
-    where the config names the kernel (the kernel's reference)."""
+def build_model(cfg, device="cuda", seed: int = 0, use_dcn_kernel: bool = True) -> MonoFlex:
+    """The model of ``cfg`` on ``device`` (the card unless the caller asks
+    for the CPU), in eval mode, channels-last, with weights from ``seed``.
+    ``use_dcn_kernel=False`` runs the plain DCN op where the config names the
+    kernel (the kernel's reference)."""
     with torch.device("meta"):
         model = MonoFlex(build_backbone(cfg, use_dcn_kernel),
                          build_predictor(cfg),

@@ -17,10 +17,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from monoflex_tpu.models.heads.key2channel import Key2Channel
-
 from ...ops.image_ops import gather_edge_features, scatter_add_edge, sigmoid_hm
 from ..batchnorm import BatchNorm1d, BatchNorm2d
+from .key2channel import Key2Channel
 
 
 class NormAct(BatchNorm2d):

@@ -97,6 +97,30 @@ def modulated_deform_conv(x: torch.Tensor, offset: torch.Tensor, mask: torch.Ten
     return out
 
 
+def check_epilogue(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor,
+                   shift: torch.Tensor) -> None:
+    """Raise ValueError unless scale and shift are float32 (Co,) on x's device."""
+    Co = weight.shape[3]
+    for name, t in (("scale", scale), ("shift", shift)):
+        if tuple(t.shape) != (Co,) or t.dtype != torch.float32 or t.device != x.device:
+            raise ValueError(f"{name} must be float32 ({Co},) on {x.device}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def modulated_deform_conv_bn_relu(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
+                                  weight: torch.Tensor, scale: torch.Tensor,
+                                  shift: torch.Tensor, *, max_offset: int,
+                                  transfer_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The DCN with the eval BN+ReLU epilogue, as ``dcn_pallas_v3(...,
+    epilogue=(scale, shift))``: relu(DCN(x; no bias) * scale + shift).  The
+    caller folds the BN and the conv bias into (scale, shift)."""
+    check_dcn_inputs(x, offset, mask, weight, None)
+    check_epilogue(x, weight, scale, shift)
+    y = modulated_deform_conv(x, offset, mask, weight, None, max_offset=max_offset,
+                              transfer_dtype=transfer_dtype)
+    return torch.relu(y * scale + shift)
+
+
 _WRT = ("x", "offset", "mask", "weight")
 
 

@@ -3,7 +3,8 @@ autograd Function the model calls.
 
 Three hand-written kernels, each in its own ``csrc/*.cu``:
 
-- ``dcn_fwd.cu`` replaces ``monoflex_tpu/ops/dcn_pallas_v3.py::dcn_pallas_v3``;
+- ``dcn_fwd.cu`` replaces ``monoflex_tpu/ops/dcn_pallas_v3.py::dcn_pallas_v3``,
+  with its optional eval BN+ReLU epilogue (``dcn_forward_bn_relu``);
 - ``dcn_bwd_dx.cu`` replaces ``dcn_pallas_v5_bwd_dx`` (and its siblings
   dx3/dx4, which compute the same dx);
 - ``dcn_bwd_dwmo.cu`` replaces ``dcn_pallas_v3_bwd_dwmo`` (dmask, dW and
@@ -11,7 +12,10 @@ Three hand-written kernels, each in its own ``csrc/*.cu``:
 
 ``dcn_forward`` is the op the model calls: ``DCNFunction``, whose forward is
 ``dcn_fwd`` and whose backward is ``dcn_bwd_dx`` + ``dcn_bwd_dwmo`` + a torch
-sum of g for the bias.  Each wrapper launches its kernel on a CUDA tensor or
+sum of g for the bias.  ``dcn_forward_bn_relu`` is the fused eval BN+ReLU
+forward, inference-only like the JAX path (no gradient).  The v1 and v2 TPU
+generations compute the same functions; the model routes them here with
+float32 transfer.  Each wrapper launches its kernel on a CUDA tensor or
 raises; on a CPU tensor it runs the plain PyTorch version in ``ops/dcn.py``.
 There is no fallback from one to the other.  ``<wrapper>.launches`` counts a
 wrapper's kernel launches.
@@ -35,7 +39,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from .dcn import check_dcn_inputs, modulated_deform_conv, modulated_deform_conv_backward
+from .dcn import (check_dcn_inputs, check_epilogue, modulated_deform_conv,
+                  modulated_deform_conv_backward, modulated_deform_conv_bn_relu)
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(sorted((_PKG / "csrc").glob("*.cu")))
@@ -52,7 +57,8 @@ _DW_CO_TILE, _DW_C_TILE = 64, 64
 
 _vp, _i32, _f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
-    "dcn_fwd": [_vp, _i32, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _f32, _vp],
+    "dcn_fwd": [_vp, _i32, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32,
+                _f32, _vp],
     "dcn_bwd_dx": [_vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _f32, _vp],
     "dcn_bwd_dwmo": [_vp, _i32, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i32,
                      _i32, _i32, _i32, _i32, _i32, _f32, _vp],
@@ -151,17 +157,18 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 
 def _fwd_kernel(xt: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
-                weight: torch.Tensor, bias: Optional[torch.Tensor],
-                max_offset: int) -> torch.Tensor:
-    """Launch dcn_fwd on x already in its transfer dtype; ``dcn_forward``
-    has checked the operands."""
+                weight: torch.Tensor, bias: Optional[torch.Tensor], max_offset: int,
+                epilogue: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+    """Launch dcn_fwd on x already in its transfer dtype, with the BN+ReLU
+    epilogue when given (scale, shift); the caller has checked the operands
+    and counts the launch."""
     B, H, W, C = xt.shape
     Co = weight.shape[3]
+    scale, shift = epilogue or (None, None)
     out = torch.empty((B, H, W, Co), device=xt.device, dtype=torch.float32)
     _launch("dcn_fwd", xt, xt.data_ptr(), int(xt.dtype == torch.bfloat16), offset.data_ptr(),
-            mask.data_ptr(), weight.data_ptr(), _ptr(bias), out.data_ptr(),
-            B, H, W, C, Co, float(max_offset))
-    dcn_forward.launches += 1
+            mask.data_ptr(), weight.data_ptr(), _ptr(bias), _ptr(scale), _ptr(shift),
+            out.data_ptr(), B, H, W, C, Co, float(max_offset))
     return out
 
 
@@ -244,6 +251,7 @@ class DCNFunction(torch.autograd.Function):
                                         max_offset=max_offset)
         else:
             out = _fwd_kernel(xt, offset, mask, weight, bias, max_offset)
+            dcn_forward.launches += 1
         ctx.save_for_backward(xt, offset, mask, weight)
         ctx.max_offset = max_offset
         ctx.has_bias = bias is not None
@@ -286,6 +294,36 @@ def dcn_forward(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     return DCNFunction.apply(x, offset, mask, weight, bias, max_offset, transfer_dtype)
 
 
+def dcn_forward_bn_relu(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
+                        weight: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, *,
+                        max_offset: int,
+                        transfer_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """relu(DCN(x; no bias) * scale + shift), the eval BN+ReLU fused into
+    dcn_fwd's output write (``ops.dcn.modulated_deform_conv_bn_relu`` on a
+    CPU tensor).  Inference only, as the JAX epilogue has no VJP: it raises
+    if autograd would need a gradient of any operand.
+    ``dcn_forward_bn_relu.launches`` counts kernel launches."""
+    check_dcn_inputs(x, offset, mask, weight, None)
+    check_epilogue(x, weight, scale, shift)
+    if transfer_dtype not in _TRANSFER_DTYPES:
+        raise ValueError(f"transfer_dtype must be one of {_TRANSFER_DTYPES}, got {transfer_dtype}")
+    operands = (x, offset, mask, weight, scale, shift)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
+        raise RuntimeError("dcn_forward_bn_relu is inference-only: it has no gradient; run "
+                           "it under torch.no_grad() or torch.inference_mode()")
+    if x.device.type == "cpu":
+        return modulated_deform_conv_bn_relu(*operands, max_offset=max_offset,
+                                             transfer_dtype=transfer_dtype)
+    _check_device("dcn_forward_bn_relu", x)
+    _check_kernel_operands("dcn_fwd", *x.shape, weight.shape[3], x=x, offset=offset, mask=mask,
+                           weight=weight, scale=scale, shift=shift)
+    out = _fwd_kernel(x.to(transfer_dtype), offset, mask, weight, None, max_offset,
+                      epilogue=(scale, shift))
+    dcn_forward_bn_relu.launches += 1
+    return out
+
+
 dcn_forward.launches = 0
+dcn_forward_bn_relu.launches = 0
 dcn_bwd_dx.launches = 0
 dcn_bwd_dwmo.launches = 0

@@ -9,13 +9,14 @@ non-finite total skips the update as in JAX: parameters, moments, the LR
 schedule's count, the EMA and the BN running stats (which torch has already
 moved during the forward, so they are restored) stay as before the step,
 while ``step`` and ``skips`` advance.  Deciding that costs one host sync per
-step, on the total loss.
+step, on the total loss.  ``make_eval_step`` is the evaluation path's
+forward and decode.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -68,3 +69,19 @@ def make_train_step(model: nn.Module, loss_computer, optimizer: Optimizer
         return TrainState(step=state.step + 1, skips=skips), metrics
 
     return train_step
+
+
+def make_eval_step(model: nn.Module, post_processor
+                   ) -> Callable[..., Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]]:
+    """Returns eval_step(batch, output_depth=None) -> (rows (B, K, 14),
+    valid (B, K), extras): the model in eval mode under
+    ``torch.inference_mode``, then the decode.  ``batch`` holds tensors on
+    the model's device."""
+
+    def eval_step(batch: Tensors, output_depth: Optional[str] = None):
+        model.eval()
+        with torch.inference_mode():
+            outputs = model(batch["image"], batch.get("edge_indices"), batch.get("edge_len"))
+            return post_processor(outputs, batch, output_depth=output_depth)
+
+    return eval_step

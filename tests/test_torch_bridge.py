@@ -48,7 +48,7 @@ def flax_tree(cfg):
 
 def test_bridge_loads_every_weight(cfg, flax_tree):
     params, stats = flax_tree
-    model = build_model(cfg)
+    model = build_model(cfg, device="cpu")
     load_flax_variables(model, unflatten_params(params), unflatten_params(stats), cfg)
     state = model.state_dict()
     # spot-check each layout: OIHW conv, depthwise transposed conv, conv1d, BN stat
@@ -89,7 +89,7 @@ def test_bridge_rejects_an_unmapped_flax_leaf(cfg, flax_tree):
 
 def test_bridge_rejects_a_model_with_other_names(cfg, flax_tree):
     params, stats = flax_tree
-    model = build_model(cfg)
+    model = build_model(cfg, device="cpu")
     model.extra = torch.nn.Linear(2, 2)
     with pytest.raises(KeyError, match="extra"):
         load_flax_variables(model, unflatten_params(params), unflatten_params(stats), cfg)
@@ -100,7 +100,7 @@ def test_bridge_rejects_a_wrong_shape(cfg, flax_tree):
     params = dict(params)
     params["predictor/class_out/bias"] = np.zeros(4, np.float32)
     with pytest.raises(ValueError, match="class_head.2.bias"):
-        load_flax_variables(build_model(cfg), unflatten_params(params),
+        load_flax_variables(build_model(cfg, device="cpu"), unflatten_params(params),
                             unflatten_params(stats), cfg)
 
 

@@ -18,7 +18,8 @@ import pytest
 import torch
 
 from monoflex_tpu_torch.ops import dcn_cuda
-from monoflex_tpu_torch.ops.dcn import modulated_deform_conv, modulated_deform_conv_backward
+from monoflex_tpu_torch.ops.dcn import (modulated_deform_conv, modulated_deform_conv_backward,
+                                        modulated_deform_conv_bn_relu)
 
 pytestmark = pytest.mark.cuda
 ATOL = 1e-4
@@ -57,6 +58,28 @@ def test_kernel_matches_plain_op(device, shape, R, transfer):
     assert dcn_cuda.dcn_forward.launches == before + 1
     ref = modulated_deform_conv(*args, max_offset=R, transfer_dtype=transfer)
     assert (y - ref).abs().max().item() <= ATOL
+
+
+@pytest.mark.parametrize("shape", [(1, 16, 32, 8, 8), (2, 9, 7, 40, 72), (8, 48, 160, 128, 64)])
+@pytest.mark.parametrize("transfer", [torch.float32, torch.bfloat16])
+def test_epilogue_kernel_matches_plain_fused_op(device, shape, transfer):
+    """dcn_fwd with the fused BN+ReLU epilogue: one launch, counted on its
+    own wrapper, equal to relu(DCN(x; no bias) * scale + shift)."""
+    x, off, mask, w, _ = make_inputs(device, *shape, seed=3, bias=False)
+    g = torch.Generator(device=device).manual_seed(4)
+    scale = 1 + 0.3 * torch.randn(shape[-1], device=device, generator=g)
+    shift = 0.2 * torch.randn(shape[-1], device=device, generator=g)
+    before = dcn_cuda.dcn_forward_bn_relu.launches, dcn_cuda.dcn_forward.launches
+    with torch.inference_mode():
+        y = dcn_cuda.dcn_forward_bn_relu(x, off, mask, w, scale, shift, max_offset=2,
+                                         transfer_dtype=transfer)
+        torch.cuda.synchronize()
+        ref = modulated_deform_conv_bn_relu(x, off, mask, w, scale, shift, max_offset=2,
+                                            transfer_dtype=transfer)
+    assert (dcn_cuda.dcn_forward_bn_relu.launches, dcn_cuda.dcn_forward.launches) == (
+        before[0] + 1, before[1])
+    assert (y - ref).abs().max().item() <= ATOL
+    assert 0 < (y == 0).float().mean().item() < 1
 
 
 def test_kernel_zero_offsets_is_a_conv(device):

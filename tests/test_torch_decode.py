@@ -132,8 +132,23 @@ def test_decode_depth_modes(mode):
 
 
 def test_box_nms_is_not_served(cfg):
-    c = cfg.clone()
-    c.TEST.USE_NMS = "2d"
-    c.TEST.NMS_THRESH = 0.5
-    with pytest.raises(NotImplementedError):
-        PostProcessor(c)
+    """TEST.USE_NMS was refused before ``decode/nms.py`` was ported; now the
+    post-processor applies box NMS, 2d and 3d, and its validity mask equals
+    the JAX one's and drops some of the rows the score threshold kept."""
+    hm, reg = crafted_heads(cfg, seed=2)
+    reg[0] = np.abs(reg[0]) * 8       # 2d_dim: boxes wide enough to overlap
+    batch = {k: v for k, v in camera_batch().items() if k != "_rng"}
+    jpred = {"cls": jnp.asarray(hm), "reg": tuple(jnp.asarray(r) for r in reg)}
+    pred = {"cls": torch.from_numpy(hm).permute(0, 3, 1, 2),
+            "reg": tuple(torch.from_numpy(r).permute(0, 3, 1, 2) for r in reg)}
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    kept = PostProcessor(cfg)(pred, tbatch)[1].sum()
+    for use_nms in ("2d", "3d"):
+        c = cfg.clone()
+        c.TEST.USE_NMS = use_nms
+        c.TEST.NMS_THRESH = 0.1
+        jrows, jvalid, _ = JaxPostProcessor(c)(jpred, {k: jnp.asarray(v) for k, v in batch.items()})
+        rows, valid, _ = PostProcessor(c)(pred, tbatch)
+        np.testing.assert_allclose(rows.numpy(), np.asarray(jrows), **TOL)
+        np.testing.assert_array_equal(valid.numpy(), np.asarray(jvalid), err_msg=use_nms)
+        assert 0 < valid.sum() < kept, use_nms

@@ -145,14 +145,14 @@ def test_inference_batch_matches_jax_batch_maker():
 
 
 @pytest.mark.parametrize("override", [
-    ("TPU.DCN_FORCE_IMPL", "gather"), ("TPU.DCN_FORCE_IMPL", "pallas2"),
-    ("TPU.DCN_FUSE_BN_RELU", True), ("MODEL.BACKBONE.CONV_BODY", "dlav0"),
+    ("TPU.DCN_FORCE_IMPL", "gather"), ("TPU.DCN_FORCE_IMPL", "pallas4"),
+    ("MODEL.BACKBONE.CONV_BODY", "dla34_nodcn"), ("MODEL.BACKBONE.CONV_BODY", "dlav0"),
     ("TPU.COMPUTE_DTYPE", "bfloat16")])
 def test_unserved_configs_raise(override):
     cfg = narrow_cfg("")
     cfg.merge_from_list(list(override))
     with pytest.raises(NotImplementedError):
-        build_model(cfg)
+        build_model(cfg, device="cpu")
 
 
 def test_dcn_stage_specs_follow_the_config():
