@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's inference, training and evaluation paths once on
-one NVIDIA GPU.
+"""Drive the PyTorch port's inference, training, evaluation and
+kernel-diagnostics paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -37,7 +37,21 @@ Phases, one line each; any failure exits non-zero and prints no result:
              plain-op model, fused against unfused; AP against the plain-op
              run; the 8-mode depth sweep, one run_test() and the
              diagnostics (depth errors, disentangled 3D IoU).
-  8. report  the kernels' JSON line (with each kernel's bound on the card),
+  8. diag    the kernel-diagnostics path: each dcn_ablate variant against
+             its plain version at kernel_diag's default shapes (0 and 4 of
+             MODEL_SHAPES), with dcn_fwd timed beside them (the split of its
+             time); the relayout kernel against its plain version and
+             F.pad(x.permute(...)) at transpose_ablate's default shape; the
+             bf16 window math of dcn_fwd, dcn_bwd_dx and dcn_bwd_dwmo against
+             the plain op at the neck's shapes; then the four tools through
+             their entry points (python -m monoflex_tpu_torch.tools.<tool>),
+             each a process whose launch counts start at 0 and are written
+             at its end: kernel_bench (f32r2,bf16r1, all shapes, --bwd),
+             kernel_diag at its defaults, fwd_ablate --parity with every
+             variant, transpose_ablate with every variant.  Fails on a
+             non-zero exit, an error record, a non-finite time or a parity
+             error above tolerance.
+  9. report  the kernels' JSON line (with each kernel's bound on the card),
              the card line, and last the result line
              {"ok": true, "device": {...}}.
 """
@@ -48,7 +62,9 @@ import json
 import logging
 import math
 import os
+import re
 import subprocess
+import sys
 import tempfile
 import time
 
@@ -70,6 +86,11 @@ from monoflex_tpu_torch.models.detector import build_model
 from monoflex_tpu_torch.ops import dcn_cuda
 from monoflex_tpu_torch.ops.dcn import (modulated_deform_conv, modulated_deform_conv_backward,
                                         modulated_deform_conv_bn_relu)
+from monoflex_tpu_torch.ops.dcn_ablate import VARIANTS as ABLATE_VARIANTS
+from monoflex_tpu_torch.ops.dcn_ablate import dcn_ablate, dcn_ablate_reference
+from monoflex_tpu_torch.ops.relayout import relayout, relayout_dims, relayout_reference
+from monoflex_tpu_torch.tools import LAUNCH_LOG_ENV
+from monoflex_tpu_torch.tools.kernel_bench import MODEL_SHAPES
 from monoflex_tpu_torch.train.solver import build_optimizer
 from monoflex_tpu_torch.train.train_step import (TrainState, forward_backward, make_eval_step,
                                                  make_train_step)
@@ -141,9 +162,36 @@ AP_KEYS = sorted(
                           ("Cyclist", ("0.50", "0.25")))
     for kind in ["aos", "image"] + [f"{m}_{o}" for m in ("3d", "bev") for o in overlaps]
     for diff in ("easy", "moderate", "hard"))
-# published peaks of one H100 SXM (NVIDIA's data sheet): f32 outside the
-# tensor cores, the type of every kernel's arithmetic, and HBM bandwidth
+# the diag phase: kernel_diag's default shapes and transpose_ablate's
+DIAG_SHAPES = [MODEL_SHAPES[0], MODEL_SHAPES[4]]
+RELAYOUT_SHAPE = (BATCH, 96, 320, 64)
+# dcn_ablate against its plain version: dma and the relayout move data
+# (exact); the others are float32 on both sides, summation order only
+ABLATE_RTOL = 1e-5
+# the bf16-math kernels against the plain op in bf16 math: both round at
+# the same points, so they differ by the order of float32 sums and, rarely,
+# a sampled value rounded to the neighbouring bf16; the same kernels in f32
+# math lie about 1e-3 of the largest |output| from it (bf16 keeps 8 bits),
+# so the tolerance sits between the two: 1e-4 of the largest |output| or
+# |gradient|
+BF16_RTOL = 1e-4
+# fwd_ablate --parity (its relerr, max |diff| / max |ref| against the v2
+# route): the f32 routes are dcn_fwd itself on the same inputs (0 expected);
+# the bf16 routes are the bf16 window math (within 3e-2, as the CPU tests
+# hold the TPU kernels' bf16 math to the port's)
+PARITY_F32_TOL = 1e-6
+PARITY_BF16_TOL = 3e-2
+FWD_ABLATE_VARIANTS = ("full", "nomap", "nobcast", "hoistwx", "fori", "foribf16", "hoist3d",
+                       "hoist3dbf16", "packed", "packedbf16", "v15", "v15bf16", "packedh3",
+                       "packedh3bf16")
+TRANSPOSE_VARIANTS = ("xla", "dot", "pallas", "pallasT")
+TOOL_ITERS = 3
+# published peaks of one H100 SXM (NVIDIA's data sheet, dense): f32 outside
+# the tensor cores, the type of the kernels' arithmetic; bf16 on the tensor
+# cores, the type of the bf16 window math's product (bf16 x bf16 summed in
+# f32); HBM bandwidth
 F32_PEAK_FLOPS = 67e12
+BF16_TC_PEAK_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -165,36 +213,68 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def dcn_work(kind: str, H: int, W: int, C: int, Co: int, x_bytes: int):
-    """(operations, bytes) one DCN kernel call needs at batch BATCH: each
-    input read once, each output written once.  Operations: the 9*C*Co
-    contraction per pixel (2 each, multiply and add), 8 per sampled
-    (pixel, tap, channel) for the 4 bilinear corners; dwmo also forms
-    u = W g, samples the two offset derivatives and takes 3 channel dots;
-    the epilogue adds 3 per output (scale, shift, max)."""
+def dcn_work(kind: str, H: int, W: int, C: int, Co: int, x_bytes: int, bf16_math: bool = False):
+    """(f32 operations, bytes, bf16 tensor-core operations) one DCN kernel
+    call needs at batch BATCH: each input read once, each output written
+    once.  Operations: the 9*C*Co contraction per pixel (2 each, multiply
+    and add), 8 per sampled (pixel, tap, channel) for the 4 bilinear
+    corners; dwmo also forms u = W g (a second contraction), samples the
+    two offset derivatives and takes 3 channel dots; the epilogue adds 3
+    per output (scale, shift, max).  Under ``bf16_math`` the contractions
+    are bf16 x bf16 products summed in f32, counted at the tensor cores'
+    bf16 rate; the sampling stays f32.  The ablations (ops/dcn_ablate.py)
+    at R: dma moves x; window takes the 4 corners and the tap sum (9 per
+    sampled element), aligned 2 row corners (5); matmul the contraction
+    and the mask (1); nomap the contraction of one box-summed map, whose
+    (2R+1)^2 box is separable (2R adds along the row, 2R along the column,
+    once per (pixel, channel)); nobcast the contraction and, since its
+    hat weights are constant over a row tile, a row pass and a column pass
+    of 2R+1 multiply-adds per (pixel, tap, channel), with 11 (2R+1) per
+    (pixel, tap) for the hat maps, the mask and the tile maximum."""
     n = BATCH * H * W
     taps = 9 * n * C
     gemm = 2 * taps * Co
     f32 = 4
     offset_mask = n * 27 * f32
     weight = 9 * C * Co * f32
-    if kind == "fwd":
-        return gemm + 8 * taps, n * C * x_bytes + offset_mask + weight + Co * f32 + n * Co * f32
+    if kind in ("fwd", "dx", "dwmo"):
+        products = (2 if kind == "dwmo" else 1) * gemm
+        sampling = 30 * taps if kind == "dwmo" else 8 * taps
+        if kind == "fwd":
+            nbytes = n * C * x_bytes + offset_mask + weight + Co * f32 + n * Co * f32
+        elif kind == "dx":   # x is not read: dx does not depend on it
+            nbytes = offset_mask + weight + n * Co * f32 + n * C * f32
+        else:                # outputs dmask, doffset and dW
+            nbytes = n * C * x_bytes + offset_mask + weight + n * Co * f32 + offset_mask + weight
+        if bf16_math:
+            return sampling, nbytes, products
+        return products + sampling, nbytes, 0
+    if bf16_math:
+        raise ValueError(f"{kind} has no bf16 math")
     if kind == "fwd_bn_relu":
         return (gemm + 8 * taps + 3 * n * Co,
-                n * C * x_bytes + offset_mask + weight + 2 * Co * f32 + n * Co * f32)
-    if kind == "dx":   # x is not read: dx does not depend on it
-        return gemm + 8 * taps, offset_mask + weight + n * Co * f32 + n * C * f32
-    if kind == "dwmo":  # outputs dmask, doffset and dW
-        return (2 * gemm + 30 * taps,
-                n * C * x_bytes + offset_mask + weight + n * Co * f32 + offset_mask + weight)
+                n * C * x_bytes + offset_mask + weight + 2 * Co * f32 + n * Co * f32, 0)
+    x_in, offset, mask = n * C * x_bytes, n * 18 * f32, n * 9 * f32
+    if kind == "dma":
+        return 0, x_in + n * C * f32, 0
+    if kind in ("window", "aligned"):
+        return (9 if kind == "window" else 5) * taps, x_in + offset + n * C * f32, 0
+    if kind == "matmul":
+        return gemm + taps, x_in + mask + weight + n * Co * f32, 0
+    if kind == "nomap":
+        return gemm + 4 * R * n * C, x_in + weight + n * Co * f32, 0
+    if kind == "nobcast":
+        return (gemm + 4 * (2 * R + 1) * taps + 11 * (2 * R + 1) * 9 * n,
+                x_in + offset + mask + weight + n * Co * f32, 0)
     raise ValueError(kind)
 
 
-def bound_of(ops: float, nbytes: float):
-    """(bound_ms, bound_by): the larger of the operations over the f32 peak
-    and the bytes over the memory rate."""
-    t_ops, t_bytes = ops / F32_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S
+def bound_of(ops: float, nbytes: float, tc_ops: float = 0):
+    """(bound_ms, bound_by): the largest of ``ops`` over the f32 peak,
+    ``tc_ops`` over the bf16 tensor-core peak (the two units run side by
+    side) and the bytes over the memory rate."""
+    t_ops = max(ops / F32_PEAK_FLOPS, tc_ops / BF16_TC_PEAK_FLOPS)
+    t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -422,7 +502,7 @@ def check_backward() -> dict:
         for key, ms in times.items():
             step_ms[key] += layers * ms
         for name in work:
-            ops, nbytes = dcn_work(name, H, W, C, Co, x.element_size())
+            ops, nbytes, _ = dcn_work(name, H, W, C, Co, x.element_size())
             work[name][0] += layers * ops
             work[name][1] += layers * nbytes
         phase("bwd", f"B,H,W,C,Co={(BATCH, H, W, C, Co)} layers={layers} "
@@ -753,6 +833,311 @@ def run_eval() -> dict:
     return launches["b"]
 
 
+def diag_inputs(seed: int, H: int, W: int, C: int, Co: int):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return (torch.randn(BATCH, H, W, C, device="cuda", generator=g),
+            torch.randn(BATCH, H, W, 18, device="cuda", generator=g) * 1.5,
+            torch.rand(BATCH, H, W, 9, device="cuda", generator=g),
+            torch.randn(3, 3, C, Co, device="cuda", generator=g) / (9 * C) ** 0.5)
+
+
+def check_ablate() -> dict:
+    """Each dcn_ablate variant against its plain version at kernel_diag's
+    default shapes, batch 8, R=2: max error, ms per call of kernel and plain
+    version in turns (and of x.clone() for dma), summed over the two shapes;
+    dcn_fwd (f32 x, no bias) timed beside them, the split of its time."""
+    out = {v: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "ops": 0, "bytes": 0,
+               "library_ms": 0.0 if v == "dma" else None} for v in ABLATE_VARIANTS}
+    for i, (H, W, C, Co) in enumerate(DIAG_SHAPES):
+        x, off, mask, w = diag_inputs(300 + i, H, W, C, Co)
+        with torch.no_grad():
+            full = sum(time_ms(lambda: dcn_cuda.dcn_forward(x, off, mask, w, None, max_offset=R), 20)
+                       for _ in range(2)) / 2
+        split = {}
+        for v in ABLATE_VARIANTS:
+            def kernel():
+                return dcn_ablate(x, off, mask, w, variant=v, max_offset=R)
+
+            def plain():
+                return dcn_ablate_reference(x, off, mask, w, variant=v, max_offset=R)
+
+            y, ref = kernel(), plain()
+            err = (y - ref).abs().max().item()
+            tol = 0.0 if v == "dma" else ABLATE_RTOL * ref.abs().max().item()
+            if not (err <= tol and torch.isfinite(y).all()):
+                raise AssertionError(f"dcn_ablate[{v}] {(BATCH, H, W, C, Co)}: max abs err {err} "
+                                     f"> {tol}")
+            if v == "dma":
+                if not torch.equal(x.clone(), y):
+                    raise AssertionError("dcn_ablate[dma] differs from x.clone()")
+                p1, k1, l1, l2, k2, p2 = (time_ms(plain, 3), time_ms(kernel, 20),
+                                          time_ms(x.clone, 20), time_ms(x.clone, 20),
+                                          time_ms(kernel, 20), time_ms(plain, 3))
+                out[v]["library_ms"] += (l1 + l2) / 2
+            else:
+                p1, k1, k2, p2 = (time_ms(plain, 3), time_ms(kernel, 20), time_ms(kernel, 20),
+                                  time_ms(plain, 3))
+            ops, nbytes, _ = dcn_work(v, H, W, C, Co, x.element_size())
+            rec = out[v]
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            rec["ms"] += (k1 + k2) / 2
+            rec["plain_ms"] += (p1 + p2) / 2
+            rec["ops"] += ops
+            rec["bytes"] += nbytes
+            split[v] = (k1 + k2) / 2
+            del y, ref
+        bounds = {v: bound_of(*dcn_work(v, H, W, C, Co, x.element_size()))[0]
+                  for v in ("fwd", *split)}
+        phase("diag", f"dcn_fwd split B,H,W,C,Co={(BATCH, H, W, C, Co)} R={R}, ms (share of "
+                      f"dcn_fwd, bound ms): dcn_fwd(f32 x)_ms={full:.4f} (1, {bounds['fwd']:.4f}) "
+                      + " ".join(f"{v}_ms={ms:.4f} ({ms / full:.2f}, {bounds[v]:.4f})"
+                                 for v, ms in split.items()))
+        del x, off, mask, w
+        torch.cuda.empty_cache()
+    for v, rec in out.items():
+        rec["bound_ms"], rec["bound_by"] = bound_of(rec.pop("ops"), rec.pop("bytes"))
+        phase("diag", f"dcn_ablate[{v}] over {len(DIAG_SHAPES)} shapes: max_abs_err="
+                      f"{rec['max_abs_err']:.3e} (tol {0 if v == 'dma' else ABLATE_RTOL} of max "
+                      f"|ref|) ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} bound_ms="
+                      f"{rec['bound_ms']:.4f} ({rec['bound_by']})"
+                      + (f" library_ms(x.clone)={rec['library_ms']:.4f}" if v == "dma" else ""))
+    return out
+
+
+def check_relayout() -> dict:
+    """The relayout kernel against its plain version (pad + permute +
+    contiguous) and the one PyTorch call, F.pad of the permuted view, at
+    transpose_ablate's default shape, R=2: exact; ms of each in turns."""
+    B, H, W, C = RELAYOUT_SHAPE
+    x = torch.randn(B, H, W, C, device="cuda", generator=torch.Generator(device="cuda").manual_seed(400))
+    P, _, wp2f, Cs = relayout_dims(H, W, C, R)
+
+    def kernel():
+        return relayout(x, R)
+
+    def plain():
+        return relayout_reference(x, R)
+
+    def library():
+        return F.pad(x.permute(0, 1, 3, 2), (P, wp2f - W - P, 0, Cs - C))
+
+    y = kernel()
+    if not (torch.equal(y, plain()) and torch.equal(y, library())):
+        raise AssertionError("relayout differs from its plain version or F.pad(x.permute(...))")
+    p1, k1, l1, l2, k2, p2 = (time_ms(plain, 20), time_ms(kernel, 20), time_ms(library, 20),
+                              time_ms(library, 20), time_ms(kernel, 20), time_ms(plain, 20))
+    bound_ms, bound_by = bound_of(0, x.numel() * 4 + y.numel() * 4)
+    rec = {"max_abs_err": 0.0, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+           "library_ms": (l1 + l2) / 2, "bound_ms": bound_ms, "bound_by": bound_by}
+    phase("diag", f"relayout {tuple(x.shape)} -> {tuple(y.shape)}: exact vs plain and library; "
+                  + " ".join(f"{k}={v:.4f}" for k, v in rec.items() if k.endswith("ms")))
+    return rec
+
+
+def bf16_math_errors(x, off, mask, w, b, gy, max_offset: int):
+    """The bf16-math kernels' outputs against the plain op and its backward
+    in bf16 math, and the f32-math kernels' against the same: per output
+    (fwd, dx, dmask, doffset, dW), (max abs error of the bf16 kernel, its
+    share of max |ref|, the f32 kernel's share)."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    ref = dict(zip(("dx", "doffset", "dmask", "dW"), modulated_deform_conv_backward(
+        x, off, mask, w, gy, max_offset=max_offset, compute_dtype=bf16)))
+    ref["fwd"] = modulated_deform_conv(x, off, mask, w, b, max_offset=max_offset,
+                                       compute_dtype=bf16)
+    got = {}
+    with torch.no_grad():
+        for dt in (bf16, f32):
+            kw = dict(max_offset=max_offset, compute_dtype=dt)
+            dmask, dw, doff = dcn_cuda.dcn_bwd_dwmo(x, off, mask, w, gy, **kw)
+            got[dt] = {"fwd": dcn_cuda.dcn_forward(x, off, mask, w, b, **kw),
+                       "dx": dcn_cuda.dcn_bwd_dx(x, off, mask, w, gy, **kw),
+                       "dmask": dmask, "doffset": doff, "dW": dw}
+    out = {}
+    for key in ("fwd", "dx", "dmask", "doffset", "dW"):
+        if not torch.isfinite(got[bf16][key]).all():
+            raise AssertionError(f"bf16 math {key}: non-finite values")
+        scale = ref[key].abs().max().item()
+        err = (got[bf16][key] - ref[key]).abs().max().item()
+        gap = (got[f32][key] - ref[key]).abs().max().item()
+        out[key] = (err, err / scale, gap / scale)
+    return out
+
+
+def check_bf16_math() -> dict:
+    """dcn_fwd, dcn_bwd_dx and dcn_bwd_dwmo in bf16 window math against the
+    plain op and its backward in the same mode at the neck's shapes, batch
+    8, at R=2 and at R=1 (kernel_bench's bf16r1): each output within
+    BF16_RTOL of the largest |ref|, and the same kernels in f32 math
+    further than that from it, so the tolerance tells the modes apart; ms
+    per forward or step (16 layers) at R=2, kernel and plain version in
+    turns."""
+    bf16 = torch.bfloat16
+    worst = {"fwd": 0.0, "dx": 0.0, "dwmo": 0.0}
+    total = {k: {"ms": 0.0, "plain_ms": 0.0, "work": [0, 0, 0]} for k in worst}
+    failed = []
+    for i, ((H, W, C, Co), layers) in enumerate(DCN_SHAPES):
+        if layers == 0:
+            continue
+        x, off, mask, w = diag_inputs(500 + i, H, W, C, Co)
+        g = torch.Generator(device="cuda").manual_seed(600 + i)
+        b = torch.randn(Co, device="cuda", generator=g) * 0.1
+        gy = torch.randn(BATCH, H, W, Co, device="cuda", generator=g)
+        for r in (R, 1):
+            errs = bf16_math_errors(x, off, mask, w, b, gy, r)
+            for key, (err, rel, gap) in errs.items():
+                if not rel <= BF16_RTOL < gap:
+                    failed.append(f"{key} {(BATCH, H, W, C, Co)} R={r}: bf16 kernel {rel:.3e}, "
+                                  f"f32 kernel {gap:.3e} of max |ref|")
+                if r == R:
+                    k = key if key in worst else "dwmo"
+                    worst[k] = max(worst[k], err)
+            phase("diag", f"bf16 math B,H,W,C,Co={(BATCH, H, W, C, Co)} R={r} share of max |ref| "
+                          f"(tol {BF16_RTOL}), bf16-math kernel / f32-math kernel vs bf16 plain: "
+                          + " ".join(f"{k}={rel:.3e}/{gap:.3e}" for k, (_, rel, gap) in errs.items()))
+        kw = dict(max_offset=R, compute_dtype=bf16)
+        runs = {
+            "fwd": (lambda: dcn_cuda.dcn_forward(x, off, mask, w, b, **kw),
+                    lambda: modulated_deform_conv(x, off, mask, w, b, **kw)),
+            "dx": (lambda: dcn_cuda.dcn_bwd_dx(x, off, mask, w, gy, **kw),
+                   lambda: modulated_deform_conv_backward(x, off, mask, w, gy, wrt=("x",), **kw)),
+            "dwmo": (lambda: dcn_cuda.dcn_bwd_dwmo(x, off, mask, w, gy, **kw),
+                     lambda: modulated_deform_conv_backward(
+                         x, off, mask, w, gy, wrt=("offset", "mask", "weight"), **kw)),
+        }
+        times = {}
+        with torch.no_grad():
+            for key, (kern, plain) in runs.items():
+                n_k, n_p = (20, 5) if key == "fwd" else (10, 3)
+                p1, k1, k2, p2 = (time_ms(plain, n_p), time_ms(kern, n_k), time_ms(kern, n_k),
+                                  time_ms(plain, n_p))
+                times[key] = (k1 + k2) / 2
+                total[key]["ms"] += layers * (k1 + k2) / 2
+                total[key]["plain_ms"] += layers * (p1 + p2) / 2
+                work = dcn_work(key, H, W, C, Co, x.element_size(), bf16_math=True)
+                total[key]["work"] = [t + layers * v for t, v in zip(total[key]["work"], work)]
+        phase("diag", f"bf16 math B,H,W,C,Co={(BATCH, H, W, C, Co)} layers={layers} R={R} "
+                      + " ".join(f"{k}_ms={v:.4f}" for k, v in times.items()))
+        del x, off, mask, w, b, gy
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("bf16 math outside its tolerance, or f32 math inside it: "
+                             + "; ".join(failed))
+    out = {}
+    for key, rec in total.items():
+        bound_ms, bound_by = bound_of(*rec["work"])
+        out[key] = {"max_abs_err": worst[key], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    phase("diag", "bf16 math per forward/step (16 layers): "
+                  + " ".join(f"{k}_ms={v['ms']:.4f} {k}_plain_ms={v['plain_ms']:.4f} "
+                             f"{k}_bound_ms={v['bound_ms']:.4f}" for k, v in out.items()))
+    return out
+
+
+def run_tool(name: str, args, tmp: str):
+    """``python -m monoflex_tpu_torch.tools.<name> *args`` in its own
+    process: its stdout lines and the launch counts it wrote at its end."""
+    log = os.path.join(tmp, f"{name}.launches.json")
+    env = {**os.environ, LAUNCH_LOG_ENV: log}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", f"monoflex_tpu_torch.tools.{name}", *args],
+                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"{name} exited {proc.returncode}:\n{proc.stdout[-2000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    with open(log) as f:
+        launches = json.load(f)
+    lines = proc.stdout.splitlines()
+    # tools/trace_time.py takes a trace again when the profiler dropped records
+    retraced = proc.stderr.count("lost device records")
+    phase("diag", f"{name} {' '.join(args)}: exit 0 in {time.perf_counter() - t0:.2f} s, "
+                  f"{len(lines)} lines, {retraced} profiler traces taken again")
+    return lines, launches
+
+
+def finite(v) -> bool:
+    return isinstance(v, (int, float)) and math.isfinite(v)
+
+
+def run_tools() -> dict:
+    """The four tools through their entry points; returns the launches of
+    every kernel summed over the four processes."""
+    total = {}
+    with tempfile.TemporaryDirectory(prefix="monoflex_diag_") as tmp:
+        def run(name, args, check):
+            lines, launches = run_tool(name, [*args, "--iters", str(TOOL_ITERS)], tmp)
+            check(lines)
+            for k, n in launches.items():
+                total[k] = total.get(k, 0) + n
+
+        def check_records(keys):
+            def check(lines):
+                recs = [json.loads(line) for line in lines]
+                for rec in recs:
+                    bad = [k for k in rec if k.endswith("error")]
+                    if bad or not all(finite(rec.get(k)) for k in keys):
+                        raise AssertionError(f"record {rec}")
+                    phase("diag", json.dumps(rec))
+                return recs
+            return check
+
+        run("kernel_bench", ["--variants", "f32r2,bf16r1", "--shapes", "all", "--bwd",
+                             "--out", os.path.join(tmp, "kbench.jsonl")],
+            check_records(("fwd_ms", "bwd_ms")))
+        run("kernel_diag", ["--out", os.path.join(tmp, "kdiag.jsonl")], check_records(("ms",)))
+
+        def check_fwd_ablate(lines):
+            seen = {}
+            for line in lines:
+                m = re.fullmatch(r"(\S+)\s+compile\s+(\S+)s\s+device\s+(\S+) ms/call"
+                                 r"\s+relerr (\S+)", line.strip())
+                if m is None:
+                    raise AssertionError(f"fwd_ablate line {line!r}")
+                v, ms, rel = m.group(1), float(m.group(3)), float(m.group(4))
+                tol = (None if v in ("nomap", "nobcast") else
+                       PARITY_BF16_TOL if v.endswith("bf16") else PARITY_F32_TOL)
+                if not finite(ms) or (tol is not None and not rel <= tol):
+                    raise AssertionError(f"fwd_ablate {v}: ms {ms}, relerr {rel} (tol {tol})")
+                seen[v] = line.strip()
+                phase("diag", line.strip())
+            if sorted(seen) != sorted(FWD_ABLATE_VARIANTS):
+                raise AssertionError(f"fwd_ablate ran {sorted(seen)}")
+
+        run("fwd_ablate", ["--parity", "--variants", ",".join(FWD_ABLATE_VARIANTS)],
+            check_fwd_ablate)
+
+        def check_transpose(lines):
+            seen = []
+            for line in lines:
+                m = re.match(r"(\S+)\s+ms/call=\s*(\S+)\s+maxerr=(\S+)", line)
+                if m is None or not finite(float(m.group(2))) or float(m.group(3)) != 0.0:
+                    raise AssertionError(f"transpose_ablate line {line!r}")
+                seen.append(m.group(1))
+                phase("diag", line)
+            if seen != list(TRANSPOSE_VARIANTS):
+                raise AssertionError(f"transpose_ablate ran {seen}")
+
+        run("transpose_ablate", ["--variants", ",".join(TRANSPOSE_VARIANTS)], check_transpose)
+    return total
+
+
+def run_diag() -> dict:
+    """The diag phase; returns the kernels' records keyed by their name in
+    the kernels line, each with its launches in the tools' run."""
+    ablate = check_ablate()
+    relay = check_relayout()
+    bf16 = check_bf16_math()
+    launches = run_tools()
+    recs = {"dcn_fwd[bf16 math]": bf16["fwd"], "dcn_bwd_dx[bf16 math]": bf16["dx"],
+            "dcn_bwd_dwmo[bf16 math]": bf16["dwmo"], "relayout": relay,
+            **{f"dcn_ablate[{v}]": rec for v, rec in ablate.items()}}
+    missing = [k for k in recs if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"the tools' run launched no {missing}")
+    phase("diag", "launches in the tools' run: "
+                  + " ".join(f"{k}={launches[k]}" for k in recs))
+    return {k: {**rec, "launches": launches[k]} for k, rec in recs.items()}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's kernels run only on the GPU")
@@ -777,9 +1162,10 @@ def main() -> None:
     train = run_train(card)
     epilogue = check_epilogue()
     fused_launches = run_eval()
+    diag = run_diag()
     phase("report", f"inference slice dcn_fwd launches {slice_launches}; the kernels line "
-                    f"counts the train phase's launches, and the fused eval run's for "
-                    f"dcn_fwd_bn_relu")
+                    f"counts the train phase's launches, the fused eval run's for "
+                    f"dcn_fwd_bn_relu, and the diag tools' for the rest")
 
     kernels = [
         dict(name="dcn_fwd", source="monoflex_tpu_torch/csrc/dcn_fwd.cu",
@@ -793,13 +1179,30 @@ def main() -> None:
     ]
     launches = {**{{"dcn_forward": "dcn_fwd"}.get(k, k): v for k, v in train["launches"].items()},
                 "dcn_fwd_bn_relu": fused_launches["dcn_forward_bn_relu"]}
+    diag_sources = {"dcn_fwd[bf16 math]": ("dcn_fwd.cu", "monoflex_tpu/ops/dcn_pallas.py:112"),
+                    "dcn_bwd_dx[bf16 math]": ("dcn_bwd_dx.cu",
+                                              "monoflex_tpu/ops/dcn_pallas_bwd.py:242"),
+                    "dcn_bwd_dwmo[bf16 math]": ("dcn_bwd_dwmo.cu",
+                                                "monoflex_tpu/ops/dcn_pallas_bwd.py:281"),
+                    "relayout": ("relayout.cu", "tools/transpose_ablate.py:97")}
+    for v in ABLATE_VARIANTS:
+        diag_sources[f"dcn_ablate[{v}]"] = (
+            "dcn_ablate.cu", "tools/fwd_ablate.py:620" if v in ("nomap", "nobcast")
+            else "tools/kernel_diag.py:103")
+    for name, (src, replaces) in diag_sources.items():
+        rec = diag[name]
+        launches[name] = rec.pop("launches")
+        kernels.append(dict(name=name, source=f"monoflex_tpu_torch/csrc/{src}", replaces=replaces,
+                            **rec))
     # no single PyTorch call computes a modulated deformable conv (torchvision,
-    # which has one, is not installed on the card's machine)
+    # which has one, is not installed on the card's machine), nor the bf16
+    # window math or the ablations other than dma (x.clone()); the relayout's
+    # is F.pad of the permuted view
     print(json.dumps({"kernels": [
         {"name": k["name"], "route": "cuda", "source": k["source"], "replaces": k["replaces"],
          "launches": launches[k["name"]], "max_abs_err": k["max_abs_err"], "ms": k["ms"],
          "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-         "library_ms": None}
+         "library_ms": k.get("library_ms")}
         for k in kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

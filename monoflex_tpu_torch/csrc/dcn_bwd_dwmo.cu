@@ -27,6 +27,14 @@
 //    245,760 pixels at 384x1280, batch 8).
 //  - dcn_bwd_dw_reduce_kernel: sums the partials in a fixed order.
 //
+// bf16 window math (kBf16Math, the compute_dtype=bfloat16 mode of
+// monoflex_tpu/ops/dcn_pallas_bwd.py::dcn_pallas_bwd_dwm/_doff and the v2
+// dwm/doff/dwmo kernels): x comes in bf16; W and g are rounded to bf16, and
+// so, for dW, are each corner weight times the mask and each sampled value;
+// every sum is f32.  dmask and doffset take the f32 samples S, SY, SX of
+// the bf16 x (the gradients of the bf16-math forward, each rounding taken
+// straight through).
+//
 // Layouts: x (B,H,W,C) in f32 or bf16 (the forward's transfer dtype: dW,
 // dmask and doffset are evaluated at the rounded x, math in f32), offset
 // (B,H,W,18) interleaved (dy_k, dx_k), mask (B,H,W,9), weight (9,C,Co),
@@ -52,6 +60,13 @@ constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// v rounded to bf16 and back under bf16 window math; v itself otherwise
+template <bool kRound>
+__device__ __forceinline__ float rnd(float v) {
+  if constexpr (kRound) return __bfloat162float(__float2bfloat16(v));
+  return v;
+}
 
 // The 4 bilinear corners of pixel `pix` at tap k: element offset of the
 // corner's C run, its weight (no mask) and the weight's derivative with
@@ -90,7 +105,7 @@ __device__ __forceinline__ Corner corner_of(const float* __restrict__ offset, in
   return out;
 }
 
-template <typename T>
+template <typename T, bool kBf16Math>
 __global__ void __launch_bounds__(THREADS)
 dcn_bwd_mo_kernel(const T* __restrict__ x, const float* __restrict__ offset,
                   const float* __restrict__ mask, const float* __restrict__ weight,
@@ -139,14 +154,15 @@ dcn_bwd_mo_kernel(const T* __restrict__ x, const float* __restrict__ offset,
           const int co = e % TK;
           const int p = e / TK;
           s_g[co][p] = (p0 + p < npix && co0 + co < Co)
-                           ? g[static_cast<long long>(p0 + p) * Co + co0 + co]
+                           ? rnd<kBf16Math>(g[static_cast<long long>(p0 + p) * Co + co0 + co])
                            : 0.f;
         }
         for (int e = tid; e < TK * TC; e += THREADS) {
           const int co = e % TK;
           const int c = e / TK;
           s_w[co][c] = (c0 + c < C && co0 + co < Co)
-                           ? weight[(static_cast<long long>(k) * C + c0 + c) * Co + co0 + co]
+                           ? rnd<kBf16Math>(
+                                 weight[(static_cast<long long>(k) * C + c0 + c) * Co + co0 + co])
                            : 0.f;
         }
         __syncthreads();
@@ -213,7 +229,7 @@ dcn_bwd_mo_kernel(const T* __restrict__ x, const float* __restrict__ offset,
 
 // grid (nsplit, 9, c tiles x co tiles); block (s, k, tile) sums pixels
 // [s*chunk, (s+1)*chunk) into dw_partial[s, k, c tile, co tile]
-template <typename T>
+template <typename T, bool kBf16Math>
 __global__ void __launch_bounds__(THREADS)
 dcn_bwd_dw_kernel(const T* __restrict__ x, const float* __restrict__ offset,
                   const float* __restrict__ mask, const float* __restrict__ g,
@@ -253,7 +269,7 @@ dcn_bwd_dw_kernel(const T* __restrict__ x, const float* __restrict__ offset,
         m = mask[(q0 + p) * 9 + k];
       }
       s_idx[p][corner] = cn.idx;
-      s_wt[p][corner] = cn.ws * m;
+      s_wt[p][corner] = rnd<kBf16Math>(cn.ws * m);
     }
     __syncthreads();
     // gather with channel fastest: each corner's run is one coalesced read
@@ -265,13 +281,13 @@ dcn_bwd_dw_kernel(const T* __restrict__ x, const float* __restrict__ offset,
 #pragma unroll
         for (int q = 0; q < 4; ++q) v += s_wt[p][q] * to_f32(x[s_idx[p][q] + c0 + c]);
       }
-      s_a[p][c] = v;
+      s_a[p][c] = rnd<kBf16Math>(v);
     }
     for (int e = tid; e < TPW * TCO; e += THREADS) {
       const int co = e % TCO;
       const int p = e / TCO;
       s_b[p][co] = (q0 + p < end && co0 + co < Co)
-                       ? g[static_cast<long long>(q0 + p) * Co + co0 + co]
+                       ? rnd<kBf16Math>(g[static_cast<long long>(q0 + p) * Co + co0 + co])
                        : 0.f;
     }
     __syncthreads();
@@ -311,21 +327,21 @@ __global__ void dcn_bwd_dw_reduce_kernel(const float* __restrict__ dw_partial,
   dw[i] = s;
 }
 
-template <typename T>
+template <typename T, bool kBf16Math>
 int launch(const void* x, const float* offset, const float* mask, const float* weight,
            const float* g, float* dmask, float* doffset, float* dw_partial, float* dw,
            int nsplit, int B, int H, int W, int C, int Co, float R, cudaStream_t s) {
   const T* xt = static_cast<const T*>(x);
   const int npix = B * H * W;
-  dcn_bwd_mo_kernel<T><<<(npix + TP - 1) / TP, THREADS, 0, s>>>(
+  dcn_bwd_mo_kernel<T, kBf16Math><<<(npix + TP - 1) / TP, THREADS, 0, s>>>(
       xt, offset, mask, weight, g, dmask, doffset, B, H, W, C, Co, R);
   int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   // a whole number of staged tiles per split
   const int chunk = ((npix + nsplit - 1) / nsplit + TPW - 1) / TPW * TPW;
   const dim3 grid(nsplit, 9, ((C + TC - 1) / TC) * ((Co + TCO - 1) / TCO));
-  dcn_bwd_dw_kernel<T><<<grid, THREADS, 0, s>>>(xt, offset, mask, g, dw_partial, chunk, B, H,
-                                                 W, C, Co, R);
+  dcn_bwd_dw_kernel<T, kBf16Math><<<grid, THREADS, 0, s>>>(xt, offset, mask, g, dw_partial,
+                                                            chunk, B, H, W, C, Co, R);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   const int n = 9 * C * Co;
@@ -339,16 +355,24 @@ int launch(const void* x, const float* offset, const float* mask, const float* w
 // cudaGetLastError() (0 on success).  The caller checks shapes, dtypes,
 // devices and contiguity, that every index fits in 32 bits, and allocates
 // dw_partial as (nsplit, 9, C, Co); a split left with no pixels writes zeros.
-extern "C" int dcn_bwd_dwmo(const void* x, int x_is_bf16, const void* offset, const void* mask,
-                            const void* weight, const void* g, void* dmask, void* doffset,
-                            void* dw_partial, void* dw, int nsplit, int B, int H, int W, int C,
-                            int Co, float max_offset, void* stream) {
+// bf16_math needs x in bf16.
+extern "C" int dcn_bwd_dwmo(const void* x, int x_is_bf16, int bf16_math, const void* offset,
+                            const void* mask, const void* weight, const void* g, void* dmask,
+                            void* doffset, void* dw_partial, void* dw, int nsplit, int B, int H,
+                            int W, int C, int Co, float max_offset, void* stream) {
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto m = [](void* p) { return static_cast<float*>(p); };
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16_math) {
+    if (!x_is_bf16) return static_cast<int>(cudaErrorInvalidValue);
+    return launch<__nv_bfloat16, true>(x, f(offset), f(mask), f(weight), f(g), m(dmask),
+                                       m(doffset), m(dw_partial), m(dw), nsplit, B, H, W, C, Co,
+                                       max_offset, s);
+  }
   if (x_is_bf16)
-    return launch<__nv_bfloat16>(x, f(offset), f(mask), f(weight), f(g), m(dmask), m(doffset),
-                                 m(dw_partial), m(dw), nsplit, B, H, W, C, Co, max_offset, s);
-  return launch<float>(x, f(offset), f(mask), f(weight), f(g), m(dmask), m(doffset),
-                       m(dw_partial), m(dw), nsplit, B, H, W, C, Co, max_offset, s);
+    return launch<__nv_bfloat16, false>(x, f(offset), f(mask), f(weight), f(g), m(dmask),
+                                        m(doffset), m(dw_partial), m(dw), nsplit, B, H, W, C,
+                                        Co, max_offset, s);
+  return launch<float, false>(x, f(offset), f(mask), f(weight), f(g), m(dmask), m(doffset),
+                              m(dw_partial), m(dw), nsplit, B, H, W, C, Co, max_offset, s);
 }

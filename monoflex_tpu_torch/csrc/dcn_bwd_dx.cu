@@ -18,6 +18,11 @@
 // 9 x (2R+2)^2 contributions to one dx element land varies from run to run.
 // Each sum is f32 either way; tests compare with a tolerance that allows it.
 //
+// bf16 window math (kBf16Math, the compute_dtype=bfloat16 mode of
+// monoflex_tpu/ops/dcn_pallas_bwd.py::dcn_pallas_bwd_dx and the v2 dx
+// kernels): g, W and each corner weight times the mask are rounded to bf16,
+// u_k and dx accumulate in f32.
+//
 // Layouts: offset (B,H,W,18) interleaved (dy_k, dx_k), mask (B,H,W,9),
 // weight (9,C,Co), g (B,H,W,Co), dx (B,H,W,C), all f32 and contiguous; dx must
 // be zeroed by the caller.
@@ -29,6 +34,7 @@
 // except where their windows overlap).  Moving the u_k product onto wgmma and
 // the scatter onto a deterministic mirrored gather are later work.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -38,6 +44,14 @@ constexpr int TC = 64;        // input channels per block
 constexpr int TK = 32;        // output channels per staged chunk
 constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
 
+// v rounded to bf16 and back under bf16 window math; v itself otherwise
+template <bool kRound>
+__device__ __forceinline__ float rnd(float v) {
+  if constexpr (kRound) return __bfloat162float(__float2bfloat16(v));
+  return v;
+}
+
+template <bool kBf16Math>
 __global__ void __launch_bounds__(THREADS)
 dcn_bwd_dx_kernel(const float* __restrict__ offset, const float* __restrict__ mask,
                   const float* __restrict__ weight, const float* __restrict__ g,
@@ -84,7 +98,7 @@ dcn_bwd_dx_kernel(const float* __restrict__ offset, const float* __restrict__ ma
         const int xx = static_cast<int>(fx) + dxc;
         if (yy >= 0 && yy < H && xx >= 0 && xx < W) {
           idx = ((b * H + yy) * W + xx) * C;
-          wt = (dy ? ly : 1.f - ly) * (dxc ? lx : 1.f - lx) * mask[pix * 9 + k];
+          wt = rnd<kBf16Math>((dy ? ly : 1.f - ly) * (dxc ? lx : 1.f - lx) * mask[pix * 9 + k]);
         }
       }
       s_idx[p][corner] = idx;
@@ -103,14 +117,15 @@ dcn_bwd_dx_kernel(const float* __restrict__ offset, const float* __restrict__ ma
         const int co = e % TK;
         const int p = e / TK;
         s_g[co][p] = (p0 + p < npix && co0 + co < Co)
-                         ? g[static_cast<long long>(p0 + p) * Co + co0 + co]
+                         ? rnd<kBf16Math>(g[static_cast<long long>(p0 + p) * Co + co0 + co])
                          : 0.f;
       }
       for (int e = tid; e < TK * TC; e += THREADS) {
         const int co = e % TK;
         const int c = e / TK;
         s_w[co][c] = (c0 + c < C && co0 + co < Co)
-                         ? weight[(static_cast<long long>(k) * C + c0 + c) * Co + co0 + co]
+                         ? rnd<kBf16Math>(
+                               weight[(static_cast<long long>(k) * C + c0 + c) * Co + co0 + co])
                          : 0.f;
       }
       __syncthreads();
@@ -155,14 +170,21 @@ dcn_bwd_dx_kernel(const float* __restrict__ offset, const float* __restrict__ ma
 // Launches on `stream` and returns cudaGetLastError() (0 on success).  The
 // caller checks shapes, dtypes, devices and contiguity, that every index fits
 // in 32 bits, and zeroes dx.
-extern "C" int dcn_bwd_dx(const void* offset, const void* mask, const void* weight,
-                          const void* g, void* dx, int B, int H, int W, int C, int Co,
-                          float max_offset, void* stream) {
+extern "C" int dcn_bwd_dx(int bf16_math, const void* offset, const void* mask,
+                          const void* weight, const void* g, void* dx, int B, int H, int W,
+                          int C, int Co, float max_offset, void* stream) {
   const int npix = B * H * W;
   const dim3 grid((npix + TP - 1) / TP, (C + TC - 1) / TC);
-  dcn_bwd_dx_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(offset), static_cast<const float*>(mask),
-      static_cast<const float*>(weight), static_cast<const float*>(g), static_cast<float*>(dx),
-      B, H, W, C, Co, max_offset);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* off = static_cast<const float*>(offset);
+  const float* m = static_cast<const float*>(mask);
+  const float* w = static_cast<const float*>(weight);
+  const float* gg = static_cast<const float*>(g);
+  float* d = static_cast<float*>(dx);
+  if (bf16_math)
+    dcn_bwd_dx_kernel<true><<<grid, THREADS, 0, s>>>(off, m, w, gg, d, B, H, W, C, Co, max_offset);
+  else
+    dcn_bwd_dx_kernel<false><<<grid, THREADS, 0, s>>>(off, m, w, gg, d, B, H, W, C, Co,
+                                                      max_offset);
   return static_cast<int>(cudaGetLastError());
 }

@@ -14,6 +14,12 @@
 // sampling at the clamped point with zero padding.  Hopper can gather, so
 // this kernel samples the 4 corners directly.
 //
+// bf16 window math (kBf16Math, the compute_dtype=bfloat16 mode of the v1/v2
+// TPU kernels monoflex_tpu/ops/dcn_pallas.py::dcn_pallas and
+// dcn_pallas_v2.py::dcn_pallas_v2): x comes in bf16, W, each corner weight
+// times the mask, and each sampled value are rounded to bf16, and the
+// products accumulate in f32.  Without it nothing is rounded in the kernel.
+//
 // Layouts (as the JAX package's public DCN op): x (B,H,W,C) NHWC in f32 or
 // bf16 (the transfer dtype; math is f32 either way), offset (B,H,W,18)
 // interleaved (dy_k, dx_k), mask (B,H,W,9) post-sigmoid, weight (9,C,Co) f32,
@@ -51,7 +57,14 @@ constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-template <typename T>
+// v rounded to bf16 and back under bf16 window math; v itself otherwise
+template <bool kRound>
+__device__ __forceinline__ float rnd(float v) {
+  if constexpr (kRound) return __bfloat162float(__float2bfloat16(v));
+  return v;
+}
+
+template <typename T, bool kBf16Math>
 __global__ void __launch_bounds__(THREADS)
 dcn_fwd_kernel(const T* __restrict__ x, const float* __restrict__ offset,
                const float* __restrict__ mask, const float* __restrict__ weight,
@@ -105,7 +118,7 @@ dcn_fwd_kernel(const T* __restrict__ x, const float* __restrict__ offset,
         const int xx = static_cast<int>(fx) + dx;
         if (yy >= 0 && yy < H && xx >= 0 && xx < W) {
           idx = ((b * H + yy) * W + xx) * C;
-          wt = (dy ? ly : 1.f - ly) * (dx ? lx : 1.f - lx) * mask[pix * 9 + k];
+          wt = rnd<kBf16Math>((dy ? ly : 1.f - ly) * (dx ? lx : 1.f - lx) * mask[pix * 9 + k]);
         }
       }
       s_idx[p][corner] = idx;
@@ -124,13 +137,14 @@ dcn_fwd_kernel(const T* __restrict__ x, const float* __restrict__ offset,
 #pragma unroll
           for (int j = 0; j < 4; ++j) v += s_wt[p][j] * to_f32(x[s_idx[p][j] + c0 + c]);
         }
-        s_col[c][p] = v;
+        s_col[c][p] = rnd<kBf16Math>(v);
       }
       for (int e = tid; e < TC * TCO; e += THREADS) {
         const int co = e % TCO;
         const int c = e / TCO;
         s_w[c][co] = (c0 + c < C && co0 + co < Co)
-                         ? weight[(static_cast<long long>(k) * C + c0 + c) * Co + co0 + co]
+                         ? rnd<kBf16Math>(
+                               weight[(static_cast<long long>(k) * C + c0 + c) * Co + co0 + co])
                          : 0.f;
       }
       __syncthreads();
@@ -172,10 +186,11 @@ dcn_fwd_kernel(const T* __restrict__ x, const float* __restrict__ offset,
 // Launches on `stream` and returns cudaGetLastError() (0 on success).  The
 // caller checks shapes, dtypes, devices and contiguity, and that every index
 // fits in 32 bits.  scale and shift are both given (the epilogue) or both null.
-extern "C" int dcn_fwd(const void* x, int x_is_bf16, const void* offset, const void* mask,
-                       const void* weight, const void* bias, const void* scale,
-                       const void* shift, void* out, int B, int H, int W, int C, int Co,
-                       float max_offset, void* stream) {
+// bf16_math needs x in bf16.
+extern "C" int dcn_fwd(const void* x, int x_is_bf16, int bf16_math, const void* offset,
+                       const void* mask, const void* weight, const void* bias,
+                       const void* scale, const void* shift, void* out, int B, int H, int W,
+                       int C, int Co, float max_offset, void* stream) {
   const int npix = B * H * W;
   const dim3 grid((npix + TP - 1) / TP, (Co + TCO - 1) / TCO);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -186,11 +201,16 @@ extern "C" int dcn_fwd(const void* x, int x_is_bf16, const void* offset, const v
   const float* sc = static_cast<const float*>(scale);
   const float* sh = static_cast<const float*>(shift);
   float* y = static_cast<float*>(out);
-  if (x_is_bf16) {
-    dcn_fwd_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), off, m, w, b, sc, sh, y, B, H, W, C, Co, max_offset);
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  if (bf16_math) {
+    if (!x_is_bf16) return static_cast<int>(cudaErrorInvalidValue);
+    dcn_fwd_kernel<__nv_bfloat16, true><<<grid, THREADS, 0, s>>>(
+        xb, off, m, w, b, sc, sh, y, B, H, W, C, Co, max_offset);
+  } else if (x_is_bf16) {
+    dcn_fwd_kernel<__nv_bfloat16, false><<<grid, THREADS, 0, s>>>(
+        xb, off, m, w, b, sc, sh, y, B, H, W, C, Co, max_offset);
   } else {
-    dcn_fwd_kernel<float><<<grid, THREADS, 0, s>>>(
+    dcn_fwd_kernel<float, false><<<grid, THREADS, 0, s>>>(
         static_cast<const float*>(x), off, m, w, b, sc, sh, y, B, H, W, C, Co, max_offset);
   }
   return static_cast<int>(cudaGetLastError());

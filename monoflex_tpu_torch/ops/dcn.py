@@ -12,6 +12,17 @@ window is exactly this bilinear sample at the clamped point.
 Layouts follow the JAX op: x (B,H,W,C) NHWC; offset (B,H,W,18) interleaved
 (dy_k, dx_k) for taps k = 3*(ky+1) + (kx+1); mask (B,H,W,9) post-sigmoid;
 weight (3,3,C,Co).  Returns (B,H,W,Co) float32.
+
+Two bf16 modes, as the TPU kernels have them:
+
+- ``transfer_dtype=bfloat16`` (pallas3b): x is rounded once, then the math
+  is float32;
+- ``compute_dtype=bfloat16`` (the v1/v2 kernels' ``compute_dtype``,
+  ``monoflex_tpu/ops/dcn_pallas.py``, ``dcn_pallas_v2.py``,
+  ``dcn_pallas_bwd.py``): x, W and (in the backward) g are rounded to bf16,
+  so is each bilinear corner weight times the mask, and so is each sampled
+  value before its product with W; the products accumulate in float32.  The
+  TPU's order of summation inside its (2R+1)^2 window is not reproduced.
 """
 
 from __future__ import annotations
@@ -22,6 +33,21 @@ import torch
 
 # (dy, dx) of the 4 bilinear corners
 _CORNERS = ((0, 0), (0, 1), (1, 0), (1, 1))
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def round_to(t: torch.Tensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """t rounded to ``dtype`` and back, straight-through for autograd: t +
+    (round(t) - t) is exactly round(t), since the difference of two floats
+    within a factor of 2 of each other is exact."""
+    return t + (t.to(dtype).float() - t).detach()
+
+
+def check_compute_dtype(compute_dtype: torch.dtype) -> bool:
+    """True for bf16 window math; raises on a dtype that is neither."""
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, got {compute_dtype}")
+    return compute_dtype == torch.bfloat16
 
 
 def check_dcn_inputs(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
@@ -46,25 +72,56 @@ def check_dcn_inputs(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
 
 
+def bilinear_columns(x: torch.Tensor, py: torch.Tensor, px: torch.Tensor, scale,
+                     round_weights: bool = False) -> torch.Tensor:
+    """(B,H,W,9,C): x (B,H,W,C) sampled bilinearly at (py, px), each
+    (B,H,W,9), with zero padding outside the map; each corner's weight is
+    multiplied by ``scale`` (the mask, or 1) and, with ``round_weights``,
+    rounded to bf16."""
+    B, H, W, C = x.shape
+    y0 = torch.floor(py)
+    x0 = torch.floor(px)
+    ly = py - y0
+    lx = px - x0
+    batch_base = torch.arange(B, device=x.device).view(B, 1, 1, 1) * (H * W)
+
+    x_rows = x.reshape(B * H * W, C)
+    cols = None
+    for dy, dx in _CORNERS:
+        yi = y0 + dy
+        xi = x0 + dx
+        inside = (yi >= 0) & (yi < H) & (xi >= 0) & (xi < W)
+        wgt = (ly if dy else 1.0 - ly) * (lx if dx else 1.0 - lx) * inside * scale
+        if round_weights:
+            wgt = round_to(wgt)
+        idx = batch_base + yi.clamp(0, H - 1).long() * W + xi.clamp(0, W - 1).long()
+        term = x_rows.index_select(0, idx.reshape(-1)).view(B, H, W, 9, C) * wgt[..., None]
+        cols = term if cols is None else cols + term
+    return cols
+
+
 def modulated_deform_conv(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
                           weight: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
                           max_offset: int,
-                          transfer_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                          transfer_dtype: torch.dtype = torch.float32,
+                          compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """DCNv2 forward with offsets clamped to +-max_offset.
 
     transfer_dtype: x is rounded to this dtype before sampling (bf16 mirrors
     the TPU kernel's bf16-shipped x); the arithmetic is float32 either way, so
-    the result equals the float32 op on the rounded x.  The rounding is
+    the result equals the float32 op on the rounded x.  compute_dtype=bf16
+    is the bf16 window math (module docstring).  Every rounding is
     straight-through for autograd: dx is the float32 gradient with respect to
     the rounded x, as the TPU backward returns it, not a bf16-rounded one.
     """
     check_dcn_inputs(x, offset, mask, weight, bias)
+    bf16_math = check_compute_dtype(compute_dtype)
     B, H, W, C = x.shape
     Co = weight.shape[3]
     if transfer_dtype != torch.float32:
-        # x + (round(x) - x) is exactly round(x): the difference of two
-        # floats within a factor of 2 of each other is exact
-        x = x + (x.to(transfer_dtype).float() - x).detach()
+        x = round_to(x, transfer_dtype)
+    if bf16_math:
+        x, weight = round_to(x), round_to(weight)
     R = float(max_offset)
     dev = x.device
 
@@ -75,22 +132,9 @@ def modulated_deform_conv(x: torch.Tensor, offset: torch.Tensor, mask: torch.Ten
         + offset[..., 0::2].clamp(-R, R)                            # (B,H,W,9)
     px = torch.arange(W, device=dev, dtype=torch.float32).view(1, 1, W, 1) + kx \
         + offset[..., 1::2].clamp(-R, R)
-    y0 = torch.floor(py)
-    x0 = torch.floor(px)
-    ly = py - y0
-    lx = px - x0
-    batch_base = torch.arange(B, device=dev).view(B, 1, 1, 1) * (H * W)
-
-    x_rows = x.reshape(B * H * W, C)
-    cols = None
-    for dy, dx in _CORNERS:
-        yi = y0 + dy
-        xi = x0 + dx
-        inside = (yi >= 0) & (yi < H) & (xi >= 0) & (xi < W)
-        wgt = (ly if dy else 1.0 - ly) * (lx if dx else 1.0 - lx) * inside * mask
-        idx = batch_base + yi.clamp(0, H - 1).long() * W + xi.clamp(0, W - 1).long()
-        term = x_rows.index_select(0, idx.reshape(-1)).view(B, H, W, 9, C) * wgt[..., None]
-        cols = term if cols is None else cols + term
+    cols = bilinear_columns(x, py, px, mask, round_weights=bf16_math)
+    if bf16_math:
+        cols = round_to(cols)
     out = (cols.reshape(B * H * W, 9 * C) @ weight.reshape(9 * C, Co)).view(B, H, W, Co)
     if bias is not None:
         out = out + bias
@@ -127,6 +171,7 @@ _WRT = ("x", "offset", "mask", "weight")
 def modulated_deform_conv_backward(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
                                    weight: torch.Tensor, g: torch.Tensor, *, max_offset: int,
                                    transfer_dtype: torch.dtype = torch.float32,
+                                   compute_dtype: torch.dtype = torch.float32,
                                    wrt: Tuple[str, ...] = _WRT):
     """The five gradients of ``modulated_deform_conv`` for the output
     gradient g (B,H,W,Co): ``(dx, doffset, dmask, dweight, dbias)``, all
@@ -140,14 +185,22 @@ def modulated_deform_conv_backward(x: torch.Tensor, offset: torch.Tensor, mask: 
       (the reference CUDA op's convention), gated by |o| <= R through the
       clamp.  At integer offsets the TPU kernels' hat-window derivative is 0
       instead (ROADMAP C1).
+    - compute_dtype=bf16: the gradients of the bf16-math forward with g
+      rounded to bf16, each rounding straight-through.  So u = W_b g_b is
+      float32 from rounded operands, dx scatters u with the rounded corner
+      weights, dW sums the rounded samples times g_b, and dmask and doffset
+      take the unrounded float32 samples of the rounded x.
     """
+    bf16_math = check_compute_dtype(compute_dtype)
     leaves = {"x": x.to(transfer_dtype).float(), "offset": offset, "mask": mask,
               "weight": weight}
+    g_in = g.to(torch.bfloat16).float() if bf16_math else g
     with torch.enable_grad():
         leaves = {k: v.detach().requires_grad_(k in wrt) for k, v in leaves.items()}
         out = modulated_deform_conv(leaves["x"], leaves["offset"], leaves["mask"],
-                                    leaves["weight"], max_offset=max_offset)
-        grads = torch.autograd.grad(out, [leaves[k] for k in wrt], g)
+                                    leaves["weight"], max_offset=max_offset,
+                                    compute_dtype=compute_dtype)
+        grads = torch.autograd.grad(out, [leaves[k] for k in wrt], g_in)
     got = dict(zip(wrt, grads))
     return (got.get("x"), got.get("offset"), got.get("mask"), got.get("weight"),
             g.sum(dim=(0, 1, 2)))

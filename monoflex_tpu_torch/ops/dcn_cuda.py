@@ -1,7 +1,7 @@
 """The Hopper DCNv2 kernels: build, ctypes bindings, launch wrappers and the
 autograd Function the model calls.
 
-Three hand-written kernels, each in its own ``csrc/*.cu``:
+Three hand-written kernels of the model, each in its own ``csrc/*.cu``:
 
 - ``dcn_fwd.cu`` replaces ``monoflex_tpu/ops/dcn_pallas_v3.py::dcn_pallas_v3``,
   with its optional eval BN+ReLU epilogue (``dcn_forward_bn_relu``);
@@ -10,15 +10,24 @@ Three hand-written kernels, each in its own ``csrc/*.cu``:
 - ``dcn_bwd_dwmo.cu`` replaces ``dcn_pallas_v3_bwd_dwmo`` (dmask, dW and
   doffset in one call).
 
+Two more, of the kernel-diagnostics tools, are built here too and wrapped in
+their own modules: ``dcn_ablate.cu`` (``ops/dcn_ablate.py``) and
+``relayout.cu`` (``ops/relayout.py``).
+
 ``dcn_forward`` is the op the model calls: ``DCNFunction``, whose forward is
-``dcn_fwd`` and whose backward is ``dcn_bwd_dx`` + ``dcn_bwd_dwmo`` + a torch
-sum of g for the bias.  ``dcn_forward_bn_relu`` is the fused eval BN+ReLU
-forward, inference-only like the JAX path (no gradient).  The v1 and v2 TPU
-generations compute the same functions; the model routes them here with
-float32 transfer.  Each wrapper launches its kernel on a CUDA tensor or
-raises; on a CPU tensor it runs the plain PyTorch version in ``ops/dcn.py``.
-There is no fallback from one to the other.  ``<wrapper>.launches`` counts a
-wrapper's kernel launches.
+``dcn_fwd`` and whose backward is ``dcn_backward``: ``dcn_bwd_dx`` +
+``dcn_bwd_dwmo`` + a torch sum of g for the bias.  ``dcn_forward_bn_relu``
+is the fused eval BN+ReLU forward, inference-only like the JAX path (no
+gradient).  The v1 and v2 TPU generations compute the same functions; the
+model routes them here with float32 transfer.  Their
+``compute_dtype=bfloat16`` window math (``ops/dcn.py``) is a template
+parameter of all three kernels, reached through ``compute_dtype=`` and
+used only by the kernel-diagnostics tools (``monoflex_tpu_torch/tools``).
+Each wrapper launches its kernel on a CUDA tensor or raises; on a CPU tensor
+it runs the plain PyTorch version in ``ops/dcn.py``.  There is no fallback
+from one to the other.  ``<wrapper>.launches`` counts a wrapper's kernel
+launches with float32 math, ``<wrapper>.bf16_math_launches`` those with
+bf16 window math.
 
 Every source is compiled by nvcc for sm_90a on first use, one nvcc per source
 started together, into ``_build/<hash>/`` next to the package, where the hash
@@ -39,7 +48,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from .dcn import (check_dcn_inputs, check_epilogue, modulated_deform_conv,
+from .dcn import (check_compute_dtype, check_dcn_inputs, check_epilogue, modulated_deform_conv,
                   modulated_deform_conv_backward, modulated_deform_conv_bn_relu)
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -57,11 +66,14 @@ _DW_CO_TILE, _DW_C_TILE = 64, 64
 
 _vp, _i32, _f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
-    "dcn_fwd": [_vp, _i32, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32,
-                _f32, _vp],
-    "dcn_bwd_dx": [_vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _f32, _vp],
-    "dcn_bwd_dwmo": [_vp, _i32, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i32,
+    "dcn_fwd": [_vp, _i32, _i32, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32,
+                _i32, _f32, _vp],
+    "dcn_bwd_dx": [_i32, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _f32, _vp],
+    "dcn_bwd_dwmo": [_vp, _i32, _i32, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i32,
                      _i32, _i32, _i32, _i32, _i32, _f32, _vp],
+    "dcn_ablate": [_i32, _vp, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32, _i32,
+                   _i32, _vp],
+    "relayout": [_vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _vp],
 }
 
 _libs: Optional[Dict[str, ctypes.CDLL]] = None
@@ -158,41 +170,58 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 def _fwd_kernel(xt: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
                 weight: torch.Tensor, bias: Optional[torch.Tensor], max_offset: int,
-                epilogue: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
-    """Launch dcn_fwd on x already in its transfer dtype, with the BN+ReLU
-    epilogue when given (scale, shift); the caller has checked the operands
-    and counts the launch."""
+                epilogue: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                bf16_math: bool = False) -> torch.Tensor:
+    """Launch dcn_fwd on x already in its transfer dtype (bf16 under bf16
+    math), with the BN+ReLU epilogue when given (scale, shift); the caller
+    has checked the operands and counts the launch."""
     B, H, W, C = xt.shape
     Co = weight.shape[3]
     scale, shift = epilogue or (None, None)
     out = torch.empty((B, H, W, Co), device=xt.device, dtype=torch.float32)
-    _launch("dcn_fwd", xt, xt.data_ptr(), int(xt.dtype == torch.bfloat16), offset.data_ptr(),
-            mask.data_ptr(), weight.data_ptr(), _ptr(bias), _ptr(scale), _ptr(shift),
-            out.data_ptr(), B, H, W, C, Co, float(max_offset))
+    _launch("dcn_fwd", xt, xt.data_ptr(), int(xt.dtype == torch.bfloat16), int(bf16_math),
+            offset.data_ptr(), mask.data_ptr(), weight.data_ptr(), _ptr(bias), _ptr(scale),
+            _ptr(shift), out.data_ptr(), B, H, W, C, Co, float(max_offset))
     return out
 
 
+def _count(wrapper, bf16_math: bool) -> None:
+    if bf16_math:
+        wrapper.bf16_math_launches += 1
+    else:
+        wrapper.launches += 1
+
+
+def _math_x(x: torch.Tensor, bf16_math: bool) -> torch.Tensor:
+    """x as the kernels read it: bf16 under bf16 window math, else as given."""
+    return x.to(torch.bfloat16) if bf16_math else x
+
+
 def dcn_bwd_dx(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
-               weight: torch.Tensor, g: torch.Tensor, *, max_offset: int) -> torch.Tensor:
+               weight: torch.Tensor, g: torch.Tensor, *, max_offset: int,
+               compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """dx (B,H,W,C) float32 for the output gradient g (B,H,W,Co) float32.
 
     x is the forward's input as its kernel read it (float32, or bfloat16
     under bf16 transfer); only its shape is used: dx does not depend on x.
-    ``dcn_bwd_dx.launches`` counts kernel launches.
+    ``dcn_bwd_dx.launches`` (``.bf16_math_launches`` under
+    ``compute_dtype=bfloat16``) counts kernel launches.
     """
     _check_grad_inputs(x, offset, mask, weight, g)
+    bf16_math = check_compute_dtype(compute_dtype)
     if x.device.type == "cpu":
         return modulated_deform_conv_backward(x.float(), offset, mask, weight, g,
-                                              max_offset=max_offset, wrt=("x",))[0]
+                                              max_offset=max_offset, compute_dtype=compute_dtype,
+                                              wrt=("x",))[0]
     _check_device("dcn_bwd_dx", x)
     B, H, W, C = x.shape
     Co = weight.shape[3]
     _check_kernel_operands("dcn_bwd_dx", B, H, W, C, Co, offset=offset, mask=mask,
                            weight=weight, g=g)
     dx = torch.zeros((B, H, W, C), device=x.device, dtype=torch.float32)
-    _launch("dcn_bwd_dx", x, offset.data_ptr(), mask.data_ptr(), weight.data_ptr(),
-            g.data_ptr(), dx.data_ptr(), B, H, W, C, Co, float(max_offset))
-    dcn_bwd_dx.launches += 1
+    _launch("dcn_bwd_dx", x, int(bf16_math), offset.data_ptr(), mask.data_ptr(),
+            weight.data_ptr(), g.data_ptr(), dx.data_ptr(), B, H, W, C, Co, float(max_offset))
+    _count(dcn_bwd_dx, bf16_math)
     return dx
 
 
@@ -203,20 +232,24 @@ def dw_splits(npix: int, C: int, Co: int) -> int:
 
 
 def dcn_bwd_dwmo(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
-                 weight: torch.Tensor, g: torch.Tensor, *, max_offset: int
+                 weight: torch.Tensor, g: torch.Tensor, *, max_offset: int,
+                 compute_dtype: torch.dtype = torch.float32
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dmask (B,H,W,9), dweight (3,3,C,Co), doffset (B,H,W,18)), float32,
     evaluated at x as the forward's kernel read it (float32, or bfloat16
-    under bf16 transfer).  ``dcn_bwd_dwmo.launches`` counts calls that
-    launch the kernels.
+    under bf16 transfer; x is rounded to bf16 under bf16 window math).
+    ``dcn_bwd_dwmo.launches`` (``.bf16_math_launches`` under
+    ``compute_dtype=bfloat16``) counts calls that launch the kernels.
     """
     _check_grad_inputs(x, offset, mask, weight, g)
+    bf16_math = check_compute_dtype(compute_dtype)
     if x.device.type == "cpu":
         _, doffset, dmask, dweight, _ = modulated_deform_conv_backward(
             x.float(), offset, mask, weight, g, max_offset=max_offset,
-            wrt=("offset", "mask", "weight"))
+            compute_dtype=compute_dtype, wrt=("offset", "mask", "weight"))
         return dmask, dweight, doffset
     _check_device("dcn_bwd_dwmo", x)
+    x = _math_x(x, bf16_math)
     B, H, W, C = x.shape
     Co = weight.shape[3]
     _check_kernel_operands("dcn_bwd_dwmo", B, H, W, C, Co, x=x, offset=offset, mask=mask,
@@ -230,12 +263,25 @@ def dcn_bwd_dwmo(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     doffset = torch.empty((B, H, W, 18), **new)
     dw_partial = torch.empty((nsplit, 9, C, Co), **new)
     dweight = torch.empty((3, 3, C, Co), **new)
-    _launch("dcn_bwd_dwmo", x, x.data_ptr(), int(x.dtype == torch.bfloat16),
+    _launch("dcn_bwd_dwmo", x, x.data_ptr(), int(x.dtype == torch.bfloat16), int(bf16_math),
             offset.data_ptr(), mask.data_ptr(), weight.data_ptr(), g.data_ptr(),
             dmask.data_ptr(), doffset.data_ptr(), dw_partial.data_ptr(), dweight.data_ptr(),
             nsplit, B, H, W, C, Co, float(max_offset))
-    dcn_bwd_dwmo.launches += 1
+    _count(dcn_bwd_dwmo, bf16_math)
     return dmask, dweight, doffset
+
+
+def dcn_backward(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
+                 weight: torch.Tensor, g: torch.Tensor, *, max_offset: int,
+                 compute_dtype: torch.dtype = torch.float32):
+    """(dx, doffset, dmask, dweight, dbias) of the DCN for the output gradient
+    g: ``dcn_bwd_dx``, ``dcn_bwd_dwmo`` and the sum of g, the counterpart of
+    ``monoflex_tpu/ops/dcn_pallas_bwd.py::dcn_pallas_bwd``."""
+    dx = dcn_bwd_dx(x, offset, mask, weight, g, max_offset=max_offset,
+                    compute_dtype=compute_dtype)
+    dmask, dweight, doffset = dcn_bwd_dwmo(x, offset, mask, weight, g, max_offset=max_offset,
+                                           compute_dtype=compute_dtype)
+    return dx, doffset, dmask, dweight, g.sum(dim=(0, 1, 2))
 
 
 class DCNFunction(torch.autograd.Function):
@@ -244,16 +290,18 @@ class DCNFunction(torch.autograd.Function):
     residual under bf16) and no im2col."""
 
     @staticmethod
-    def forward(ctx, x, offset, mask, weight, bias, max_offset, transfer_dtype):
-        xt = x.to(transfer_dtype)
+    def forward(ctx, x, offset, mask, weight, bias, max_offset, transfer_dtype, compute_dtype):
+        bf16_math = check_compute_dtype(compute_dtype)
+        xt = _math_x(x.to(transfer_dtype), bf16_math)
         if x.device.type == "cpu":
             out = modulated_deform_conv(xt.float(), offset, mask, weight, bias,
-                                        max_offset=max_offset)
+                                        max_offset=max_offset, compute_dtype=compute_dtype)
         else:
-            out = _fwd_kernel(xt, offset, mask, weight, bias, max_offset)
-            dcn_forward.launches += 1
+            out = _fwd_kernel(xt, offset, mask, weight, bias, max_offset, bf16_math=bf16_math)
+            _count(dcn_forward, bf16_math)
         ctx.save_for_backward(xt, offset, mask, weight)
         ctx.max_offset = max_offset
+        ctx.compute_dtype = compute_dtype
         ctx.has_bias = bias is not None
         return out
 
@@ -261,37 +309,39 @@ class DCNFunction(torch.autograd.Function):
     def backward(ctx, g):
         xt, offset, mask, weight = ctx.saved_tensors
         g = g.contiguous()
-        R = ctx.max_offset
+        kw = dict(max_offset=ctx.max_offset, compute_dtype=ctx.compute_dtype)
         if g.device.type == "cpu":
             dx, doffset, dmask, dweight, dbias = modulated_deform_conv_backward(
-                xt.float(), offset, mask, weight, g, max_offset=R)
+                xt.float(), offset, mask, weight, g, **kw)
         else:
-            dx = dcn_bwd_dx(xt, offset, mask, weight, g, max_offset=R)
-            dmask, dweight, doffset = dcn_bwd_dwmo(xt, offset, mask, weight, g, max_offset=R)
-            dbias = g.sum(dim=(0, 1, 2))
-        return dx, doffset, dmask, dweight, dbias if ctx.has_bias else None, None, None
+            dx, doffset, dmask, dweight, dbias = dcn_backward(xt, offset, mask, weight, g, **kw)
+        return dx, doffset, dmask, dweight, dbias if ctx.has_bias else None, None, None, None
 
 
 def dcn_forward(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
                 weight: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
                 max_offset: int,
-                transfer_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                transfer_dtype: torch.dtype = torch.float32,
+                compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """DCNv2 forward with the kernels' gradient, same contract as
     ``ops.dcn.modulated_deform_conv``.
 
     CUDA tensors go through the kernels, which take contiguous operands on
-    one device, x cast to ``transfer_dtype`` (float32 or bfloat16) and
-    indices that fit in 32 bits.  ``dcn_forward.launches`` counts forward
-    kernel launches.
+    one device, x cast to ``transfer_dtype`` (float32 or bfloat16; bfloat16
+    under ``compute_dtype=bfloat16``, the bf16 window math) and indices that
+    fit in 32 bits.  ``dcn_forward.launches`` (``.bf16_math_launches``)
+    counts forward kernel launches.
     """
     check_dcn_inputs(x, offset, mask, weight, bias)
     if transfer_dtype not in _TRANSFER_DTYPES:
         raise ValueError(f"transfer_dtype must be one of {_TRANSFER_DTYPES}, got {transfer_dtype}")
+    check_compute_dtype(compute_dtype)
     if x.device.type != "cpu":
         _check_device("dcn_forward", x)
         _check_kernel_operands("dcn_fwd", *x.shape, weight.shape[3], x=x, offset=offset,
                                mask=mask, weight=weight, bias=bias)
-    return DCNFunction.apply(x, offset, mask, weight, bias, max_offset, transfer_dtype)
+    return DCNFunction.apply(x, offset, mask, weight, bias, max_offset, transfer_dtype,
+                             compute_dtype)
 
 
 def dcn_forward_bn_relu(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
@@ -323,7 +373,7 @@ def dcn_forward_bn_relu(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tenso
     return out
 
 
-dcn_forward.launches = 0
+for _wrapper in (dcn_forward, dcn_bwd_dx, dcn_bwd_dwmo):
+    _wrapper.launches = 0
+    _wrapper.bf16_math_launches = 0
 dcn_forward_bn_relu.launches = 0
-dcn_bwd_dx.launches = 0
-dcn_bwd_dwmo.launches = 0

@@ -1,10 +1,13 @@
 """chip_smoke.py has no CPU fallback: without a CUDA device, or without the
-rest of the repository beside it, it exits non-zero and prints no result."""
+rest of the repository beside it, it exits non-zero and prints no result.
+Its bounds count the work each kernel's function needs."""
 
 import os
 import shutil
 import subprocess
 import sys
+
+import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -14,6 +17,16 @@ def run_smoke(cwd, script):
     env["CUDA_VISIBLE_DEVICES"] = ""     # hide any card
     return subprocess.run([sys.executable, script], cwd=cwd, env=env, capture_output=True,
                           text=True, timeout=300)
+
+
+def load_smoke():
+    """chip_smoke as a module: importing it runs nothing on a device."""
+    sys.path.insert(0, ROOT)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(ROOT)
+    return chip_smoke
 
 
 def test_fails_without_a_gpu():
@@ -28,3 +41,32 @@ def test_fails_alone(tmp_path):
     proc = run_smoke(tmp_path, "chip_smoke.py")
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+@pytest.mark.parametrize("kind", ["fwd", "dx", "dwmo"])
+def test_bf16_math_bound_counts_products_on_tensor_cores(kind):
+    """The bf16 window math's products are bf16 x bf16 summed in f32: its
+    bound counts them at the tensor cores' rate, the sampling at f32."""
+    smoke = load_smoke()
+    H, W, C, Co = 96, 320, 64, 64
+    ops, nbytes, tc = smoke.dcn_work(kind, H, W, C, Co, 4)
+    s_ops, s_bytes, s_tc = smoke.dcn_work(kind, H, W, C, Co, 4, bf16_math=True)
+    products = (2 if kind == "dwmo" else 1) * 2 * 9 * smoke.BATCH * H * W * C * Co
+    assert (tc, s_bytes, s_tc, s_ops) == (0, nbytes, products, ops - products)
+    t_ops = max(s_ops / smoke.F32_PEAK_FLOPS, s_tc / smoke.BF16_TC_PEAK_FLOPS)
+    bound, by = smoke.bound_of(s_ops, s_bytes, s_tc)
+    assert bound == pytest.approx(max(t_ops, s_bytes / smoke.HBM_BYTES_PER_S) * 1e3)
+    assert bound < smoke.bound_of(ops, nbytes)[0] and by in ("bytes", "operations")
+
+
+@pytest.mark.parametrize("kind", ["nomap", "nobcast"])
+def test_ablation_counts_the_separable_window(kind):
+    """nomap's box sum is separable and taken once per (pixel, channel);
+    nobcast's tile-constant hat weights take a row and a column pass."""
+    smoke = load_smoke()
+    H, W, C, Co, R = 24, 80, 256, 128, smoke.R
+    n = smoke.BATCH * H * W
+    gemm = 2 * 9 * n * C * Co
+    window = (4 * R * n * C if kind == "nomap"
+              else 4 * (2 * R + 1) * 9 * n * C + 11 * (2 * R + 1) * 9 * n)
+    assert smoke.dcn_work(kind, H, W, C, Co, 4)[0] == gemm + window

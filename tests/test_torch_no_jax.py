@@ -1,7 +1,7 @@
-"""The port stands alone: importing its inference, training and evaluation
-paths (and chip_smoke.py, which drives them on the GPU) loads no jax, flax
-or triton module, no module of the JAX package ``monoflex_tpu``, and builds
-or loads no kernel library."""
+"""The port stands alone: importing its inference, training, evaluation and
+kernel-diagnostics paths (and chip_smoke.py, which drives them on the GPU)
+loads no jax, flax or triton module, no module of the JAX package
+``monoflex_tpu``, and builds or loads no kernel library."""
 
 import os
 import subprocess
@@ -35,8 +35,15 @@ import monoflex_tpu_torch.eval
 import monoflex_tpu_torch.losses.loss_computation
 import monoflex_tpu_torch.models.detector
 import monoflex_tpu_torch.models.heads.key2channel
+import monoflex_tpu_torch.ops.dcn_ablate
+import monoflex_tpu_torch.ops.relayout
 import monoflex_tpu_torch.ops.rotated_iou
 import monoflex_tpu_torch.train.solver
+import monoflex_tpu_torch.tools.fwd_ablate
+import monoflex_tpu_torch.tools.kernel_bench
+import monoflex_tpu_torch.tools.kernel_diag
+import monoflex_tpu_torch.tools.trace_time
+import monoflex_tpu_torch.tools.transpose_ablate
 import monoflex_tpu_torch.train.train_step
 import monoflex_tpu_torch.utils.param_bridge
 from monoflex_tpu_torch.ops import dcn_cuda
