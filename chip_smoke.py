@@ -58,14 +58,17 @@ Phases, one line each; any failure exits non-zero and prints no result:
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import torch
@@ -91,9 +94,10 @@ from monoflex_tpu_torch.ops.dcn_ablate import dcn_ablate, dcn_ablate_reference
 from monoflex_tpu_torch.ops.relayout import relayout, relayout_dims, relayout_reference
 from monoflex_tpu_torch.tools import LAUNCH_LOG_ENV
 from monoflex_tpu_torch.tools.kernel_bench import MODEL_SHAPES
+from monoflex_tpu_torch.tools.step_drift import perturb_offset_convs, step_drift
 from monoflex_tpu_torch.train.solver import build_optimizer
-from monoflex_tpu_torch.train.train_step import (TrainState, forward_backward, make_eval_step,
-                                                 make_train_step)
+from monoflex_tpu_torch.train.train_step import TrainState, make_eval_step, make_train_step
+from monoflex_tpu_torch.utils.precision import apply_precision, current_precision
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BATCH = 8
@@ -193,6 +197,10 @@ TOOL_ITERS = 3
 F32_PEAK_FLOPS = 67e12
 BF16_TC_PEAK_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
+# bf16 tensor-core passes of an f32-class product of split operands
+# (csrc/sm90_mma.cuh): dcn_fwd splits each operand in three parts and takes
+# six products (the f32 class), dcn_bwd_dwmo in two and takes three
+TC_PASSES = {"fwd": 6, "fwd_bn_relu": 6, "dwmo": 3}
 
 
 def phase(name: str, msg: str) -> None:
@@ -220,23 +228,28 @@ def dcn_work(kind: str, H: int, W: int, C: int, Co: int, x_bytes: int, bf16_math
     and add), 8 per sampled (pixel, tap, channel) for the 4 bilinear
     corners; dwmo also forms u = W g (a second contraction), samples the
     two offset derivatives and takes 3 channel dots; the epilogue adds 3
-    per output (scale, shift, max).  Under ``bf16_math`` the contractions
-    are bf16 x bf16 products summed in f32, counted at the tensor cores'
-    bf16 rate; the sampling stays f32.  The ablations (ops/dcn_ablate.py)
-    at R: dma moves x; window takes the 4 corners and the tap sum (9 per
-    sampled element), aligned 2 row corners (5); matmul the contraction
-    and the mask (1); nomap the contraction of one box-summed map, whose
-    (2R+1)^2 box is separable (2R adds along the row, 2R along the column,
-    once per (pixel, channel)); nobcast the contraction and, since its
-    hat weights are constant over a row tile, a row pass and a column pass
-    of 2R+1 multiply-adds per (pixel, tap, channel), with 11 (2R+1) per
-    (pixel, tap) for the hat maps, the mask and the tile maximum."""
+    per output (scale, shift, max).  Where a contraction runs on the tensor
+    cores it is counted there, at the bf16 rate: dcn_fwd (and its epilogue
+    form) and dcn_bwd_dwmo take an f32-class product as TC_PASSES[kind]
+    bf16 passes of split operands, and one pass under ``bf16_math``, whose
+    operands are bf16 already; dcn_bwd_dx, not on the tensor cores, counts
+    its f32 contraction at the f32 rate (its bf16 math at one pass).  The
+    sampling stays f32.  The ablations (ops/dcn_ablate.py) at R: dma moves
+    x; window takes the 4 corners and the tap sum (9 per sampled element),
+    aligned 2 row corners (5); matmul the contraction and the mask (1);
+    nomap the contraction of one box-summed map, whose (2R+1)^2 box is
+    separable (2R adds along the row, 2R along the column, once per (pixel,
+    channel)); nobcast the contraction and, since its hat weights are
+    constant over a row tile, a row pass and a column pass of 2R+1
+    multiply-adds per (pixel, tap, channel), with 11 (2R+1) per (pixel, tap)
+    for the hat maps, the mask and the tile maximum."""
     n = BATCH * H * W
     taps = 9 * n * C
     gemm = 2 * taps * Co
     f32 = 4
     offset_mask = n * 27 * f32
     weight = 9 * C * Co * f32
+    passes = 1 if bf16_math else TC_PASSES.get(kind, 1)
     if kind in ("fwd", "dx", "dwmo"):
         products = (2 if kind == "dwmo" else 1) * gemm
         sampling = 30 * taps if kind == "dwmo" else 8 * taps
@@ -246,14 +259,15 @@ def dcn_work(kind: str, H: int, W: int, C: int, Co: int, x_bytes: int, bf16_math
             nbytes = offset_mask + weight + n * Co * f32 + n * C * f32
         else:                # outputs dmask, doffset and dW
             nbytes = n * C * x_bytes + offset_mask + weight + n * Co * f32 + offset_mask + weight
-        if bf16_math:
-            return sampling, nbytes, products
-        return products + sampling, nbytes, 0
+        if kind == "dx" and not bf16_math:
+            return products + sampling, nbytes, 0
+        return sampling, nbytes, passes * products
     if bf16_math:
         raise ValueError(f"{kind} has no bf16 math")
     if kind == "fwd_bn_relu":
-        return (gemm + 8 * taps + 3 * n * Co,
-                n * C * x_bytes + offset_mask + weight + 2 * Co * f32 + n * Co * f32, 0)
+        return (8 * taps + 3 * n * Co,
+                n * C * x_bytes + offset_mask + weight + 2 * Co * f32 + n * Co * f32,
+                TC_PASSES[kind] * gemm)
     x_in, offset, mask = n * C * x_bytes, n * 18 * f32, n * 9 * f32
     if kind == "dma":
         return 0, x_in + n * C * f32, 0
@@ -280,11 +294,12 @@ def bound_of(ops: float, nbytes: float, tc_ops: float = 0):
 
 def check_kernel() -> dict:
     """dcn_fwd against the plain op at the neck's shapes, x in bf16 (the
-    default impl); the kernel is also timed with x in f32, the transfer of
-    the pallas3, pallas2, pallas2p and pallas impls."""
+    default impl, cast inside the kernel), and bit-equal to the kernel on x
+    cast to bf16 first; the kernel is also timed with x in f32, the transfer
+    of the pallas3, pallas2, pallas2p and pallas impls."""
     worst = 0.0
     ms_fwd = plain_fwd = f32_fwd = 0.0
-    ops = nbytes = 0
+    ops = nbytes = tc = 0
     for i, ((H, W, C, Co), layers) in enumerate(DCN_SHAPES):
         g = torch.Generator(device="cuda").manual_seed(i)
         x = torch.randn(BATCH, H, W, C, device="cuda", generator=g)
@@ -309,6 +324,14 @@ def check_kernel() -> dict:
         err = (y - plain()).abs().max().item()
         if not (err <= KERNEL_TOL and torch.isfinite(y).all()):
             raise AssertionError(f"dcn_fwd {(BATCH, H, W, C, Co)}: max abs err {err} > {KERNEL_TOL}")
+        # the folded cast: f32 x rounded in the kernel as it is loaded, against
+        # the kernel on x cast to bf16 first; bit-equal
+        with torch.no_grad():
+            cast_first = dcn_cuda._fwd_kernel(x.to(torch.bfloat16), off, mask, w, b, R)
+        if not torch.equal(y, cast_first):
+            raise AssertionError(f"dcn_fwd {(BATCH, H, W, C, Co)}: the folded cast differs from "
+                                 f"cast-then-kernel by {(y - cast_first).abs().max().item()}")
+        del cast_first
         # plain, kernel, kernel, plain: drift in clocks hits both sides alike
         p1, k1, f1, f2, k2, p2 = (time_ms(plain, 5), time_ms(kernel, 20), time_ms(kernel_f32, 20),
                                   time_ms(kernel_f32, 20), time_ms(kernel, 20), time_ms(plain, 5))
@@ -318,33 +341,20 @@ def check_kernel() -> dict:
         plain_fwd += layers * p_ms
         f32_fwd += layers * f_ms
         work = dcn_work("fwd", H, W, C, Co, x.element_size())
-        ops, nbytes = ops + layers * work[0], nbytes + layers * work[1]
+        ops, nbytes, tc = ops + layers * work[0], nbytes + layers * work[1], tc + layers * work[2]
         phase("kernel", f"dcn_fwd B,H,W,C,Co={(BATCH, H, W, C, Co)} layers={layers} "
                         f"max_abs_err={err:.3e} (tol {KERNEL_TOL}) kernel_ms={k_ms:.4f} "
                         f"plain_ms={p_ms:.4f} kernel_f32x_ms={f_ms:.4f}")
         del x, off, mask, w, b, args, y
     torch.cuda.empty_cache()
-    bound_ms, bound_by = bound_of(ops, nbytes)
+    bound_ms, bound_by = bound_of(ops, nbytes, tc)
     phase("kernel", f"per forward (16 layers): kernel_ms={ms_fwd:.4f} plain_ms={plain_fwd:.4f} "
                     f"kernel_f32x_ms={f32_fwd:.4f} "
-                    f"bound_ms={bound_ms:.4f} ({bound_by}: {ops / 1e9:.1f} GFLOP, "
-                    f"{nbytes / 1e9:.3f} GB)")
+                    f"bound_ms={bound_ms:.4f} ({bound_by}: {tc / 1e9:.1f} GFLOP on the tensor "
+                    f"cores ({TC_PASSES['fwd']} bf16 passes), {ops / 1e9:.1f} f32 GFLOP, "
+                    f"{nbytes / 1e9:.3f} GB); every layer's folded cast bit-equal to cast-then-kernel")
     return {"max_abs_err": worst, "ms": ms_fwd, "plain_ms": plain_fwd, "bound_ms": bound_ms,
             "bound_by": bound_by}
-
-
-@torch.no_grad()
-def perturb_offset_convs(model: torch.nn.Module, seed: int, weight_scale: float = 2.0) -> None:
-    """The offset/mask convs start at zero (no deformation).  Give them
-    seeded weights so offsets are fractional and some pass +-R."""
-    g = torch.Generator().manual_seed(seed)
-    for m in model.modules():
-        if isinstance(m, DCN):
-            conv = m.conv_offset_mask
-            fan_in = conv.weight[0].numel()
-            conv.weight.copy_(torch.randn(conv.weight.shape, generator=g)
-                              * weight_scale / fan_in ** 0.5)
-            conv.bias.copy_(torch.randn(conv.bias.shape, generator=g))
 
 
 @torch.no_grad()
@@ -449,7 +459,7 @@ def check_backward() -> dict:
     outputs, timed in turns."""
     worst = {"dx": 0.0, "dwmo": 0.0}
     step_ms = {"dx": 0.0, "dwmo": 0.0, "plain_dx": 0.0, "plain_dwmo": 0.0, "dwmo_f32x": 0.0}
-    work = {"dx": [0, 0], "dwmo": [0, 0]}
+    work = {"dx": [0, 0, 0], "dwmo": [0, 0, 0]}
     for i, ((H, W, C, Co), layers) in enumerate(DCN_SHAPES):
         if layers == 0:
             continue
@@ -474,6 +484,11 @@ def check_backward() -> dict:
         plain_dx, plain_dwmo = plain(("x",)), plain(("offset", "mask", "weight"))
         dx = kernel_dx()
         dmask, dw, doff = kernel_dwmo()
+        # deterministic: a second launch on the same inputs is bit-equal
+        again = kernel_dwmo()
+        if not all(torch.equal(a, b) for a, b in zip((dmask, dw, doff), again)):
+            raise AssertionError(f"dcn_bwd_dwmo {(BATCH, H, W, C, Co)}: two launches differ")
+        del again
         rdx, rdoff, rdmask, rdw, _ = modulated_deform_conv_backward(
             x.float(), off, mask, w, gy, max_offset=R)
         errs = {}
@@ -502,13 +517,13 @@ def check_backward() -> dict:
         for key, ms in times.items():
             step_ms[key] += layers * ms
         for name in work:
-            ops, nbytes, _ = dcn_work(name, H, W, C, Co, x.element_size())
-            work[name][0] += layers * ops
-            work[name][1] += layers * nbytes
+            work[name] = [t + layers * v for t, v in
+                          zip(work[name], dcn_work(name, H, W, C, Co, x.element_size()))]
         phase("bwd", f"B,H,W,C,Co={(BATCH, H, W, C, Co)} layers={layers} "
                      + " ".join(f"{k}_err={v:.3e}" for k, v in errs.items())
                      + f" (tol {BWD_RTOL} of max |ref|) "
-                     + " ".join(f"{k}_ms={v:.4f}" for k, v in times.items()))
+                     + " ".join(f"{k}_ms={v:.4f}" for k, v in times.items())
+                     + "; dwmo twice bit-equal")
         del x, off, mask, w, gy, args
         torch.cuda.empty_cache()
     out = {}
@@ -519,53 +534,26 @@ def check_backward() -> dict:
                      "bound_by": bound_by}
     phase("bwd", "per step (16 layers): " + " ".join(f"{k}_ms={v:.4f}" for k, v in step_ms.items())
           + " " + " ".join(f"{k}_bound_ms={v['bound_ms']:.4f} ({v['bound_by']}: "
-                           f"{work[k][0] / 1e9:.1f} GFLOP, {work[k][1] / 1e9:.3f} GB)"
+                           f"{work[k][0] / 1e9:.1f} f32 GFLOP, {work[k][2] / 1e9:.1f} GFLOP on "
+                           f"the tensor cores, {work[k][1] / 1e9:.3f} GB)"
                            for k, v in out.items()))
     return out
 
 
-def feeds_train_bn(name: str) -> bool:
-    """A bias whose conv output goes straight into a train-mode BN."""
-    return name.endswith("conv.bias") and ".conv_offset_mask." not in name or (
-        name.startswith("heads.predictor.trunc_") and name.endswith(".0.bias"))
-
-
 def compare_steps(state: dict, cfg, batch: dict) -> dict:
     """One kernel step and one plain-op step from the same saved state, x in
-    f32: the total loss and every parameter's gradient."""
-    cfg = cfg.clone()
-    cfg.TPU.DCN_FORCE_IMPL = "pallas3"
-    grads, totals = {}, {}
-    for label, use_kernel in (("kernel", True), ("plain", False)):
-        model = build_model(cfg, device="cuda", use_dcn_kernel=use_kernel)
-        model.load_state_dict(state)
-        totals[label] = forward_backward(model, LossComputer(cfg), batch)[0].item()
-        grads[label] = {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
-        del model
-    if grads["kernel"].keys() != grads["plain"].keys():
-        raise AssertionError("the kernel and plain-op steps reach different parameters")
-    loss_err = abs(totals["kernel"] - totals["plain"]) / abs(totals["plain"])
-    top = max(g.abs().max().item() for g in grads["plain"].values())
-    worst_rel, worst_zero = 0.0, 0.0
-    for name, ref in grads["plain"].items():
-        got = grads["kernel"][name]
-        if not torch.isfinite(got).all():
-            raise AssertionError(f"gradient of {name} is not finite")
-        if feeds_train_bn(name):
-            worst_zero = max(worst_zero, got.abs().max().item(), ref.abs().max().item())
-        elif ref.norm() > 0:
-            rel = ((got - ref).norm() / ref.norm()).item()
-            if rel > worst_rel:
-                worst_rel, worst_name = rel, name
-    phase("train", f"kernel step vs plain-op step: total {totals['kernel']:.6f} vs "
-                   f"{totals['plain']:.6f} (rel {loss_err:.3e}, tol {STEP_LOSS_RTOL}); "
-                   f"worst gradient rel L2 {worst_rel:.3e} ({worst_name}; tol {STEP_GRAD_REL_L2}) "
-                   f"over {len(grads['plain'])} parameters; biases into train-mode BN "
-                   f"{worst_zero:.3e} (tol {ZERO_GRAD_RTOL} x {top:.3e})")
-    if not (loss_err <= STEP_LOSS_RTOL and worst_rel <= STEP_GRAD_REL_L2
-            and worst_zero <= ZERO_GRAD_RTOL * top):
+    f32 (``tools/step_drift.py::step_drift``): the total loss and every
+    parameter's gradient against the tolerances."""
+    d = step_drift(state, cfg, batch)
+    phase("train", f"kernel step vs plain-op step: total {d['total_kernel']:.6f} vs "
+                   f"{d['total_plain']:.6f} (rel {d['loss_rel_err']:.3e}, tol {STEP_LOSS_RTOL}); "
+                   f"worst gradient rel L2 {d['grad_rel_l2']:.3e} ({d['worst_param']}; tol "
+                   f"{STEP_GRAD_REL_L2}) over {d['params']} parameters; biases into train-mode "
+                   f"BN {d['zero_grad_max']:.3e} (tol {ZERO_GRAD_RTOL} x {d['grad_max']:.3e})")
+    if not (d["loss_rel_err"] <= STEP_LOSS_RTOL and d["grad_rel_l2"] <= STEP_GRAD_REL_L2
+            and d["zero_grad_max"] <= ZERO_GRAD_RTOL * d["grad_max"]):
         raise AssertionError("the kernel step and the plain-op step disagree")
-    return {"loss_rel_err": loss_err, "grad_rel_l2": worst_rel}
+    return {"loss_rel_err": d["loss_rel_err"], "grad_rel_l2": d["grad_rel_l2"]}
 
 
 def run_train(card: str) -> dict:
@@ -637,7 +625,7 @@ def check_epilogue() -> dict:
     path it replaces (dcn_fwd, then BatchNorm and ReLU), timed in turns."""
     worst = worst_unfused = 0.0
     total = {"ms": 0.0, "plain_ms": 0.0, "unfused_ms": 0.0}
-    ops = nbytes = 0
+    ops = nbytes = tc = 0
     for i, ((H, W, C, Co), layers) in enumerate(DCN_SHAPES):
         if layers == 0:
             continue
@@ -680,17 +668,17 @@ def check_epilogue() -> dict:
             total[key] += layers * ms
         worst, worst_unfused = max(worst, err), max(worst_unfused, err_unfused)
         work = dcn_work("fwd_bn_relu", H, W, C, Co, x.element_size())
-        ops, nbytes = ops + layers * work[0], nbytes + layers * work[1]
+        ops, nbytes, tc = ops + layers * work[0], nbytes + layers * work[1], tc + layers * work[2]
         phase("eval", f"dcn_fwd_bn_relu B,H,W,C,Co={(BATCH, H, W, C, Co)} layers={layers} "
                       f"max_abs_err={err:.3e} (vs dcn_fwd+BN+ReLU {err_unfused:.3e}; tol "
                       f"{KERNEL_TOL}) " + " ".join(f"{k}={v:.4f}" for k, v in times.items()))
         del x, off, mask, w, b, y
     torch.cuda.empty_cache()
-    bound_ms, bound_by = bound_of(ops, nbytes)
+    bound_ms, bound_by = bound_of(ops, nbytes, tc)
     phase("eval", "dcn_fwd_bn_relu per forward (16 layers): "
                   + " ".join(f"{k}={v:.4f}" for k, v in total.items())
-                  + f" bound_ms={bound_ms:.4f} ({bound_by}: {ops / 1e9:.1f} GFLOP, "
-                    f"{nbytes / 1e9:.3f} GB)")
+                  + f" bound_ms={bound_ms:.4f} ({bound_by}: {tc / 1e9:.1f} GFLOP on the tensor "
+                    f"cores, {ops / 1e9:.1f} f32 GFLOP, {nbytes / 1e9:.3f} GB)")
     return {"max_abs_err": worst, "ms": total["ms"], "plain_ms": total["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by}
 
@@ -1138,31 +1126,110 @@ def run_diag() -> dict:
     return {k: {**rec, "launches": launches[k]} for k, rec in recs.items()}
 
 
+@contextlib.contextmanager
+def watchdog(name: str, seconds: float):
+    """End the process with a message if the phase runs past ``seconds``: a
+    kernel that waits forever (an mbarrier phase never completed) shows up
+    as this line, not as a silent hang.  The kernels' own waits trap after
+    about 20 s, which the phase then reports as a CUDA error."""
+    def expire():
+        print(f"[{name}] timed out after {seconds} s: a kernel or the host hangs", flush=True)
+        os._exit(3)
+
+    timer = threading.Timer(seconds, expire)
+    timer.daemon = True
+    timer.start()
+    try:
+        yield
+    finally:
+        timer.cancel()
+
+
+def build_report() -> dict:
+    """Per kernel source: ptxas's registers, shared memory and spills of each
+    __global__ function (nvcc -Xptxas -v), and the number of HGMMA (wgmma)
+    instructions cuobjdump finds in its SASS."""
+    out_dir = dcn_cuda.build_dir()
+    report = {}
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for src in ("dcn_fwd", "dcn_bwd_dwmo"):
+        log = (out_dir / f"{src}.log").read_text()
+        kernels = []
+        name, spills = None, "spills ?"
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                name, spills = m.group(1), "spills ?"
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                spills = f"spills {m.group(1)}/{m.group(2)} B"
+            m = re.search(r"Used (\d+) registers(?:, (\d+) bytes smem)?", line)
+            if m and name and "_kernel" in name:
+                kernels.append(f"{short_kernel_name(name)} {m.group(1)} regs, "
+                               f"{m.group(2) or 0} B static smem, {spills}")
+                name = None
+        sass = subprocess.run([cuobjdump, "-sass", str(out_dir / f"{src}.so")],
+                              capture_output=True, text=True, check=True).stdout
+        hgmma = {}
+        for block in sass.split("Function : ")[1:]:
+            fn = short_kernel_name(block.split()[0])
+            hgmma[fn] = hgmma.get(fn, 0) + block.count("HGMMA")
+        if not any(hgmma.get(k, 0) for k in hgmma if "mo_kernel" in k or "fwd_kernel" in k
+                   or "dw_kernel" in k):
+            raise AssertionError(f"{src}: no HGMMA in its SASS")
+        report[src] = ("; ".join(kernels) + " | HGMMA per instantiation: "
+                       + ", ".join(f"{k}={v}" for k, v in sorted(hgmma.items())))
+    return report
+
+
+def short_kernel_name(mangled: str) -> str:
+    """A mangled instantiation's kernel name and template arguments, e.g.
+    dcn_fwd_kernel<f,1,0,128>."""
+    m = re.search(r"\d+((?:dcn|fwd|dwmo)_\w+?_kernel)(?:I(.*?)EEv)?", mangled)
+    if not m:
+        return mangled[:40]
+    flat = re.findall(r"Lb(\d)E|Li(\d+)E|(13__nv_bfloat16)|(f)", m.group(2) or "")
+    names = ["f32" if d else ("bf16" if c else a or b) for a, b, c, d in flat]
+    return m.group(1) + ("<" + ",".join(names) + ">" if names else "")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's kernels run only on the GPU")
-    # full-f32 matmuls and convolutions on both sides of every comparison
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    # the config's precision (full-f32 matmuls and convolutions, TF32 off) on
+    # both sides of every comparison; build_model sets it again per model
+    cfg = get_cfg_defaults()
+    cfg.merge_from_file(os.path.join(ROOT, "runs", "monoflex.yaml"))
+    apply_precision(cfg)
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     phase("device", f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
-                    f"nvidia-smi: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+                    f"nvidia-smi: {card}; torch {torch.__version__} cuda {torch.version.cuda}; "
+                    + " ".join(f"{k}={v}" for k, v in current_precision().items()))
 
     t0 = time.perf_counter()
-    dcn_cuda.build()
+    with watchdog("build", 600):
+        dcn_cuda.build()
     phase("build", f"{', '.join(src.name for src in dcn_cuda.SOURCES)} -> sm_90a in "
-                   f"{time.perf_counter() - t0:.2f} s")
+                   f"{time.perf_counter() - t0:.2f} s; nvcc {' '.join(dcn_cuda.NVCC_FLAGS)}")
+    for name, info in build_report().items():
+        phase("build", f"{name}: {info}")
 
-    fwd = check_kernel()
-    slice_launches = run_slice()["launches"]
-    bwd = check_backward()
-    train = run_train(card)
-    epilogue = check_epilogue()
-    fused_launches = run_eval()
-    diag = run_diag()
+    with watchdog("kernel", 240):
+        fwd = check_kernel()
+    with watchdog("slice", 240):
+        slice_launches = run_slice()["launches"]
+    with watchdog("bwd", 300):
+        bwd = check_backward()
+    with watchdog("train", 300):
+        train = run_train(card)
+    with watchdog("eval", 400):
+        epilogue = check_epilogue()
+        fused_launches = run_eval()
+    with watchdog("diag", 600):
+        diag = run_diag()
     phase("report", f"inference slice dcn_fwd launches {slice_launches}; the kernels line "
                     f"counts the train phase's launches, the fused eval run's for "
                     f"dcn_fwd_bn_relu, and the diag tools' for the rest")

@@ -22,6 +22,7 @@ import torch
 from ..data.loader import make_test_loader
 from ..decode.kitti_writer import write_kitti_results
 from ..eval import evaluate_python
+from ..utils.precision import apply_precision
 
 # the reference's 8-way sweep, oracle included (reference: engine/inference.py:154)
 DEPTH_METHODS = ["direct", "keypoints_center", "keypoints_02", "keypoints_13",
@@ -100,6 +101,7 @@ def inference(cfg, eval_step: Callable, dataset, output_dir: str, metrics=("R40"
     ``label_2`` (a KITTI submission) gets the txts and no AP."""
     if visualize:
         raise NotImplementedError("visualize: utils/visualizer.py is not ported")
+    apply_precision(cfg)
     logger = logger or logging.getLogger("monoflex.inference")
     batch_size = max(1, cfg.TEST.IMS_PER_BATCH)
     pred_dir = os.path.join(output_dir, "data")

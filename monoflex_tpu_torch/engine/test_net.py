@@ -7,13 +7,16 @@ import logging
 import os
 from typing import Callable, Optional
 
+from ..utils.precision import apply_precision
 from .inference import inference, inference_all_depths
 
 
 def run_test(cfg, eval_step: Callable, dataset, eval_all_depths: bool = False,
              logger: Optional[logging.Logger] = None, device="cuda"):
     """Decode ``dataset`` into ``OUTPUT_DIR/inference_test`` (every depth
-    mode with ``eval_all_depths``), with AP where the root has labels."""
+    mode with ``eval_all_depths``), with AP where the root has labels,
+    under the precision flags of ``cfg``."""
+    apply_precision(cfg)
     output_dir = os.path.join(cfg.OUTPUT_DIR, "inference_test")
     if eval_all_depths:
         return inference_all_depths(cfg, eval_step, dataset, output_dir, logger=logger,

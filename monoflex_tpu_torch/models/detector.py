@@ -16,6 +16,7 @@ from typing import Dict, Optional, Sequence
 import torch
 from torch import nn
 
+from ..utils.precision import apply_precision, resolve_precision
 from .backbone.dla import DCN, BilinearUp, build_backbone
 from .heads.predictor import Predictor, build_predictor
 
@@ -78,7 +79,10 @@ def build_model(cfg, device="cuda", seed: int = 0, use_dcn_kernel: bool = True) 
     """The model of ``cfg`` on ``device`` (the card unless the caller asks
     for the CPU), in eval mode, channels-last, with weights from ``seed``.
     ``use_dcn_kernel=False`` runs the plain DCN op where the config names the
-    kernel (the kernel's reference)."""
+    kernel (the kernel's reference).  It sets torch's matmul/convolution
+    precision flags from ``cfg`` (``utils/precision.py``) and keeps them as
+    ``model.precision``, which the train and eval steps apply again."""
+    precision = apply_precision(resolve_precision(cfg))
     with torch.device("meta"):
         model = MonoFlex(build_backbone(cfg, use_dcn_kernel),
                          build_predictor(cfg),
@@ -87,4 +91,5 @@ def build_model(cfg, device="cuda", seed: int = 0, use_dcn_kernel: bool = True) 
                          to_bgr=bool(cfg.INPUT.TO_BGR))
     model = model.to_empty(device=device)
     init_parameters(model, torch.Generator().manual_seed(seed))
+    model.precision = precision
     return model.to(memory_format=torch.channels_last).eval()

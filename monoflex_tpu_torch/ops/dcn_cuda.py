@@ -29,10 +29,21 @@ from one to the other.  ``<wrapper>.launches`` counts a wrapper's kernel
 launches with float32 math, ``<wrapper>.bf16_math_launches`` those with
 bf16 window math.
 
+``dcn_fwd.cu`` and ``dcn_bwd_dwmo.cu`` run their products on Hopper's tensor
+cores (wgmma, ``csrc/sm90_mma.cuh``) on operands split into bf16 parts
+(``split_bf16``): dcn_fwd in three parts and six passes, the f32 class of
+the plain op; dcn_bwd_dwmo in two parts and three passes; each
+first launches a small kernel that splits W and lays it out for wgmma
+(plain versions: ``fwd_weight_image``, ``dwmo_weight_image``).  Under ``torch.no_grad()`` the forward takes f32 x
+and rounds it to the bf16 transfer dtype inside the kernel, bit-equal to
+casting it first; under autograd ``DCNFunction`` casts, because it saves the
+bf16 x for the backward.
+
 Every source is compiled by nvcc for sm_90a on first use, one nvcc per source
 started together, into ``_build/<hash>/`` next to the package, where the hash
-covers all the sources and the flags; each library is loaded with ctypes.
-Nothing is built or loaded at import time.
+covers all the sources, the shared headers (``csrc/*.cuh``) and the flags;
+each library is loaded with ctypes.  Nothing is built or loaded at import
+time.
 """
 
 from __future__ import annotations
@@ -53,24 +64,32 @@ from .dcn import (check_compute_dtype, check_dcn_inputs, check_epilogue, modulat
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(sorted((_PKG / "csrc").glob("*.cu")))
+HEADERS = tuple(sorted((_PKG / "csrc").glob("*.cuh")))
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _TRANSFER_DTYPES = (torch.float32, torch.bfloat16)
 _INT32_MAX = 2**31 - 1
-# dcn_bwd_dwmo splits the dW pixel reduction so that about this many blocks
-# run (8 per SM of an H100), with at least 32 pixels (one staged tile) each
-_DW_TARGET_BLOCKS = 8 * 132
-_DW_TILE_PIXELS = 32
-_DW_CO_TILE, _DW_C_TILE = 64, 64
+# dcn_bwd_dwmo splits the dW pixel reduction into at most two waves of blocks
+# over the 132 SMs of an H100 (three blocks an SM at a 64-wide output-channel
+# tile, two at 128, one at 256), with at least 64 pixels (one stage) each
+_SMS = 132
+_DW_TILE_PIXELS = 64
+_DW_C_TILE = 64
+# the swizzled tile layout of csrc/sm90_mma.cuh: 64 bf16 columns a chunk, 16-byte groups
+_CHUNK = 64
+# bf16 parts of each f32 operand of dcn_fwd (csrc/dcn_fwd.cu's PARTS, which
+# its entry checks)
+FWD_PARTS = 3
+_MAX_MO_CO = 256
 
 _vp, _i32, _f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
-    "dcn_fwd": [_vp, _i32, _i32, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32,
-                _i32, _f32, _vp],
+    "dcn_fwd": [_vp, _i32, _i32, _i32, _vp, _vp, _vp, _vp, _i32, _i32, _vp, _vp, _vp, _vp,
+                _i32, _i32, _i32, _i32, _i32, _f32, _vp],
     "dcn_bwd_dx": [_i32, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _f32, _vp],
-    "dcn_bwd_dwmo": [_vp, _i32, _i32, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i32,
-                     _i32, _i32, _i32, _i32, _i32, _f32, _vp],
+    "dcn_bwd_dwmo": [_vp, _i32, _i32, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i32,
+                     _i32, _i32, _i32, _i32, _i32, _i32, _f32, _vp],
     "dcn_ablate": [_i32, _vp, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32, _i32,
                    _i32, _vp],
     "relayout": [_vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _vp],
@@ -88,16 +107,22 @@ def _nvcc() -> str:
     return found
 
 
+def build_dir() -> Path:
+    """Where the libraries of these sources and flags are built:
+    ``_build/<hash>/``, with each nvcc's log (ptxas -v) beside its library."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES + HEADERS:
+        digest.update(src.name.encode() + src.read_bytes())
+    return BUILD_DIR / digest.hexdigest()[:16]
+
+
 def build() -> Dict[str, ctypes.CDLL]:
     """Compile (once per hash of the sources and flags) and load every
     kernel library; returns them by kernel name."""
     global _libs
     if _libs is not None:
         return _libs
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
-        digest.update(src.name.encode() + src.read_bytes())
-    out_dir = BUILD_DIR / digest.hexdigest()[:16]
+    out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
     targets = {src.stem: (src, out_dir / f"{src.stem}.so") for src in SOURCES}
     procs = {}
@@ -168,20 +193,108 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
+def split_bf16(t: torch.Tensor, parts: int = 2) -> Tuple[torch.Tensor, ...]:
+    """t as ``parts`` bfloat16 tensors that sum to it: each the rest of t
+    after the ones before, rounded to bf16 (to nearest).  Two parts keep
+    about 16 significant bits of t, and a product a b taken as a_hi b_hi +
+    a_hi b_lo + a_lo b_hi (dcn_bwd_dwmo's three tensor-core passes, summed
+    in f32) is within about 2^-16 |a b|.  Three parts keep about 24 bits,
+    and dcn_fwd's six passes (every pair of parts whose orders sum to at
+    most 2) are within about 2^-25 |a b|, the f32 class."""
+    out, rest = [], t.float()
+    for _ in range(parts):
+        out.append(rest.to(torch.bfloat16))
+        rest = rest - out[-1].float()
+    return tuple(out)
+
+
+def swizzle_128b(t: torch.Tensor) -> torch.Tensor:
+    """Rows of 64 bf16 (..., R, 64) in the 128-byte swizzle that wgmma reads
+    (``csrc/sm90_mma.cuh``): the 16-byte group j of row r moves to j ^ (r % 8)."""
+    R = t.shape[-2]
+    groups = t.unflatten(-1, (8, 8))
+    r = torch.arange(R, device=t.device).view(R, 1)
+    src = torch.arange(8, device=t.device).view(1, 8) ^ (r % 8)
+    return groups.gather(-2, src[..., None].expand(groups.shape)).flatten(-2)
+
+
+def _pad(t: torch.Tensor, dims: Dict[int, int]) -> torch.Tensor:
+    """t zero-padded at the end of each dim to the given size."""
+    pads = [0] * (2 * t.dim())
+    for d, size in dims.items():
+        pads[2 * (t.dim() - 1 - d) + 1] = size - t.shape[d]
+    return torch.nn.functional.pad(t, pads)
+
+
+def _parts(w: torch.Tensor, parts: int, bf16_math: bool) -> torch.Tensor:
+    """W's bf16 parts stacked on a new dim 0; under bf16 math W is rounded,
+    so the first part is exact and the others are 0."""
+    split = split_bf16(w, parts)
+    return torch.stack([split[0]] + [torch.zeros_like(p) if bf16_math else p
+                                     for p in split[1:]])
+
+
+def fwd_tile_n(Co: int) -> int:
+    """dcn_fwd's output channels per block: 128 where Co pads to a multiple
+    of 128, else 64."""
+    return 128 if math.ceil(Co / _CHUNK) % 2 == 0 else 64
+
+
+def fwd_image_numel(C: int, Co: int, bn: int) -> int:
+    return 9 * math.ceil(C / _CHUNK) * math.ceil(Co / bn) * FWD_PARTS * bn * _CHUNK
+
+
+def dwmo_image_numel(C: int, Co: int) -> int:
+    return 9 * math.ceil(C / _CHUNK) * 2 * math.ceil(Co / _CHUNK) * _CHUNK * _CHUNK
+
+
+def fwd_weight_image(weight: torch.Tensor, bn: int, bf16_math: bool = False) -> torch.Tensor:
+    """W (3,3,C,Co) as dcn_fwd's B operand: (9, ceil(C/64), Co_pad/bn, 3, bn,
+    64) bf16, each (tap, channel chunk, output-channel tile) one bulk copy of
+    its hi, mid and lo tiles, rows of output channels with 64 channels each,
+    zero-padded and swizzled.  The plain version of the layout kernel that
+    ``csrc/dcn_fwd.cu`` launches before the forward."""
+    _, _, C, Co = weight.shape
+    cc, nt = math.ceil(C / _CHUNK), math.ceil(Co / bn)
+    w = _pad(weight.reshape(9, C, Co), {1: cc * _CHUNK, 2: nt * bn})
+    w = w.view(9, cc, _CHUNK, nt, bn).permute(0, 1, 3, 4, 2)        # (9, cc, nt, bn, 64)
+    return swizzle_128b(_parts(w, FWD_PARTS, bf16_math).permute(1, 2, 3, 0, 4, 5)).contiguous()
+
+
+def dwmo_weight_image(weight: torch.Tensor, bf16_math: bool = False) -> torch.Tensor:
+    """W (3,3,C,Co) as the B operand of dcn_bwd_dwmo's u = g W_k^T: (9,
+    ceil(C/64), 2, ceil(Co/64), 64, 64) bf16, each (tap, channel tile) one
+    bulk copy of its hi then lo chunks, rows of channels with 64 output
+    channels each, zero-padded and swizzled.  The plain version of the
+    layout kernel that ``csrc/dcn_bwd_dwmo.cu`` launches first."""
+    _, _, C, Co = weight.shape
+    ct, kc = math.ceil(C / _CHUNK), math.ceil(Co / _CHUNK)
+    w = _pad(weight.reshape(9, C, Co), {1: ct * _CHUNK, 2: kc * _CHUNK})
+    w = w.view(9, ct, _CHUNK, kc, _CHUNK).permute(0, 1, 3, 2, 4)     # (9, ct, kc, 64, 64)
+    return swizzle_128b(_parts(w, 2, bf16_math).permute(1, 2, 0, 3, 4, 5)).contiguous()
+
+
 def _fwd_kernel(xt: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
                 weight: torch.Tensor, bias: Optional[torch.Tensor], max_offset: int,
                 epilogue: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                bf16_math: bool = False) -> torch.Tensor:
-    """Launch dcn_fwd on x already in its transfer dtype (bf16 under bf16
-    math), with the BN+ReLU epilogue when given (scale, shift); the caller
-    has checked the operands and counts the launch."""
+                bf16_math: bool = False, round_x: bool = False) -> torch.Tensor:
+    """Launch dcn_fwd on x in its transfer dtype (bf16 under bf16 math), or
+    on f32 x that the kernel rounds to bf16 as it loads it (``round_x``),
+    with the BN+ReLU epilogue when given (scale, shift); the caller has
+    checked the operands and counts the launch."""
     B, H, W, C = xt.shape
     Co = weight.shape[3]
+    if round_x and xt.dtype != torch.float32:
+        raise ValueError("dcn_fwd: round_x takes float32 x")
     scale, shift = epilogue or (None, None)
+    bn = fwd_tile_n(Co)
+    # scratch for W's split and layout, which the kernel's first launch writes
+    w_img = torch.empty(fwd_image_numel(C, Co, bn), device=xt.device, dtype=torch.bfloat16)
     out = torch.empty((B, H, W, Co), device=xt.device, dtype=torch.float32)
-    _launch("dcn_fwd", xt, xt.data_ptr(), int(xt.dtype == torch.bfloat16), int(bf16_math),
-            offset.data_ptr(), mask.data_ptr(), weight.data_ptr(), _ptr(bias), _ptr(scale),
-            _ptr(shift), out.data_ptr(), B, H, W, C, Co, float(max_offset))
+    _launch("dcn_fwd", xt, xt.data_ptr(), int(xt.dtype == torch.bfloat16), int(round_x),
+            int(bf16_math), offset.data_ptr(), mask.data_ptr(), weight.data_ptr(),
+            w_img.data_ptr(), FWD_PARTS, bn, _ptr(bias), _ptr(scale), _ptr(shift), out.data_ptr(), B, H, W,
+            C, Co, float(max_offset))
     return out
 
 
@@ -225,10 +338,19 @@ def dcn_bwd_dx(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     return dx
 
 
+def dw_tile_n(Co: int) -> int:
+    """dcn_bwd_dwmo's dW output channels per block: the largest of 256, 128
+    and 64 that divides Co padded to a multiple of 64."""
+    padded = math.ceil(Co / _CHUNK) * _CHUNK
+    return next(n for n in (256, 128, 64) if padded % n == 0)
+
+
 def dw_splits(npix: int, C: int, Co: int) -> int:
     """How many pixel slices dcn_bwd_dwmo reduces dW over (one partial each)."""
-    tiles = 9 * math.ceil(C / _DW_C_TILE) * math.ceil(Co / _DW_CO_TILE)
-    return max(1, min(math.ceil(npix / _DW_TILE_PIXELS), math.ceil(_DW_TARGET_BLOCKS / tiles)))
+    bn = dw_tile_n(Co)
+    tiles = 9 * math.ceil(C / _DW_C_TILE) * math.ceil(Co / bn)
+    slots = _SMS * {256: 1, 128: 2, 64: 3}[bn]
+    return max(1, min(math.ceil(npix / _DW_TILE_PIXELS), 2 * slots // tiles))
 
 
 def dcn_bwd_dwmo(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
@@ -254,6 +376,9 @@ def dcn_bwd_dwmo(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     Co = weight.shape[3]
     _check_kernel_operands("dcn_bwd_dwmo", B, H, W, C, Co, x=x, offset=offset, mask=mask,
                            weight=weight, g=g)
+    if Co > _MAX_MO_CO:
+        raise ValueError(f"dcn_bwd_dwmo: Co = {Co} > {_MAX_MO_CO}, the most its dmask/doffset "
+                         f"kernel stages in shared memory")
     nsplit = dw_splits(B * H * W, C, Co)
     if nsplit * 9 * C * Co > _INT32_MAX:
         raise ValueError(f"dcn_bwd_dwmo: {nsplit} dW partials of {(9, C, Co)} overflow "
@@ -263,10 +388,11 @@ def dcn_bwd_dwmo(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     doffset = torch.empty((B, H, W, 18), **new)
     dw_partial = torch.empty((nsplit, 9, C, Co), **new)
     dweight = torch.empty((3, 3, C, Co), **new)
+    w_img = torch.empty(dwmo_image_numel(C, Co), **{**new, "dtype": torch.bfloat16})
     _launch("dcn_bwd_dwmo", x, x.data_ptr(), int(x.dtype == torch.bfloat16), int(bf16_math),
-            offset.data_ptr(), mask.data_ptr(), weight.data_ptr(), g.data_ptr(),
+            offset.data_ptr(), mask.data_ptr(), weight.data_ptr(), w_img.data_ptr(), g.data_ptr(),
             dmask.data_ptr(), doffset.data_ptr(), dw_partial.data_ptr(), dweight.data_ptr(),
-            nsplit, B, H, W, C, Co, float(max_offset))
+            nsplit, dw_tile_n(Co), B, H, W, C, Co, float(max_offset))
     _count(dcn_bwd_dwmo, bf16_math)
     return dmask, dweight, doffset
 
@@ -340,6 +466,14 @@ def dcn_forward(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
         _check_device("dcn_forward", x)
         _check_kernel_operands("dcn_fwd", *x.shape, weight.shape[3], x=x, offset=offset,
                                mask=mask, weight=weight, bias=bias)
+        needs_grad = torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, offset, mask, weight, bias))
+        if not needs_grad and compute_dtype == torch.float32:
+            # no residual to save: the kernel rounds f32 x to the transfer dtype
+            out = _fwd_kernel(x, offset, mask, weight, bias, max_offset,
+                              round_x=transfer_dtype == torch.bfloat16)
+            dcn_forward.launches += 1
+            return out
     return DCNFunction.apply(x, offset, mask, weight, bias, max_offset, transfer_dtype,
                              compute_dtype)
 
@@ -367,8 +501,8 @@ def dcn_forward_bn_relu(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tenso
     _check_device("dcn_forward_bn_relu", x)
     _check_kernel_operands("dcn_fwd", *x.shape, weight.shape[3], x=x, offset=offset, mask=mask,
                            weight=weight, scale=scale, shift=shift)
-    out = _fwd_kernel(x.to(transfer_dtype), offset, mask, weight, None, max_offset,
-                      epilogue=(scale, shift))
+    out = _fwd_kernel(x, offset, mask, weight, None, max_offset, epilogue=(scale, shift),
+                      round_x=transfer_dtype == torch.bfloat16)
     dcn_forward_bn_relu.launches += 1
     return out
 

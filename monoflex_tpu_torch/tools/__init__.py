@@ -45,9 +45,12 @@ def require_cuda(tool: str) -> None:
     card's kernels and have no CPU path."""
     if not torch.cuda.is_available():
         raise SystemExit(f"{tool}: no CUDA device; the port's kernels run only on the GPU")
-    # full-f32 matmuls on both sides of every comparison
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    # the default config's precision: full-f32 matmuls and convolutions on
+    # both sides of every comparison
+    from ..config import get_cfg_defaults
+    from ..utils.precision import apply_precision
+
+    apply_precision(get_cfg_defaults())
 
 
 def write_launch_log() -> None:

@@ -21,6 +21,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from ..utils.precision import apply_precision
 from .solver import Optimizer
 
 Tensors = Dict[str, torch.Tensor]
@@ -47,9 +48,19 @@ def forward_backward(model: nn.Module, loss_computer, batch: Tensors
     return total.detach(), loss_dict, log_dict
 
 
+def use_model_precision(model: nn.Module) -> None:
+    """Apply the precision flags ``build_model`` resolved for ``model``
+    from its config (a model built elsewhere keeps the flags as they are)."""
+    precision = getattr(model, "precision", None)
+    if precision is not None:
+        apply_precision(precision)
+
+
 def make_train_step(model: nn.Module, loss_computer, optimizer: Optimizer
                     ) -> Callable[[TrainState, Tensors], Tuple[TrainState, Dict[str, object]]]:
-    """Returns train_step(state, batch) -> (state, metrics)."""
+    """Returns train_step(state, batch) -> (state, metrics), under the
+    precision flags of ``model``'s config."""
+    use_model_precision(model)
 
     def train_step(state: TrainState, batch: Tensors) -> Tuple[TrainState, Dict[str, object]]:
         buffers = [b for _, b in model.named_buffers()]
@@ -76,7 +87,9 @@ def make_eval_step(model: nn.Module, post_processor
     """Returns eval_step(batch, output_depth=None) -> (rows (B, K, 14),
     valid (B, K), extras): the model in eval mode under
     ``torch.inference_mode``, then the decode.  ``batch`` holds tensors on
-    the model's device."""
+    the model's device.  The precision flags of ``model``'s config are
+    applied here."""
+    use_model_precision(model)
 
     def eval_step(batch: Tensors, output_depth: Optional[str] = None):
         model.eval()

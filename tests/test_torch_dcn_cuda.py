@@ -156,3 +156,41 @@ def test_autograd_through_the_kernels(device, transfer):
     assert max(errs) <= ATOL, errs
     assert dw_rel <= DW_RTOL, dw_rel
     assert (b_ - ref[4]).abs().max().item() <= ATOL
+
+
+@pytest.mark.parametrize("shape", [(2, 13, 20, 24, 16), (2, 9, 7, 40, 72), (8, 48, 160, 128, 64),
+                                   (2, 12, 40, 512, 256)])
+@pytest.mark.parametrize("transfer", [torch.float32, torch.bfloat16])
+def test_dwmo_is_deterministic(device, shape, transfer):
+    """dmask, dW and doffset are sums in a fixed order (no atomics): two
+    launches on the same inputs are bit-equal."""
+    x, off, mask, w, _ = make_inputs(device, *shape, bias=False)
+    g = torch.randn(*shape[:3], shape[4], device=device,
+                    generator=torch.Generator(device=device).manual_seed(2))
+    xt = x.to(transfer)
+    first = dcn_cuda.dcn_bwd_dwmo(xt, off, mask, w, g, max_offset=2)
+    second = dcn_cuda.dcn_bwd_dwmo(xt, off, mask, w, g, max_offset=2)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("shape", [(1, 16, 32, 8, 8), (2, 9, 7, 40, 72), (8, 48, 160, 128, 64)])
+@pytest.mark.parametrize("epilogue", [False, True])
+def test_folded_cast_is_bit_equal_to_cast_then_kernel(device, shape, epilogue):
+    """Without autograd the forward takes f32 x and rounds each corner value
+    to bf16 as it loads it: bit-equal to the kernel on x cast first."""
+    x, off, mask, w, b = make_inputs(device, *shape, seed=5)
+    g = torch.Generator(device=device).manual_seed(6)
+    fused = ((1 + 0.3 * torch.randn(shape[-1], device=device, generator=g),
+              0.2 * torch.randn(shape[-1], device=device, generator=g)) if epilogue else None)
+    with torch.no_grad():
+        if epilogue:
+            folded = dcn_cuda.dcn_forward_bn_relu(x, off, mask, w, *fused, max_offset=2,
+                                                  transfer_dtype=torch.bfloat16)
+        else:
+            folded = dcn_cuda.dcn_forward(x, off, mask, w, b, max_offset=2,
+                                          transfer_dtype=torch.bfloat16)
+        cast_first = dcn_cuda._fwd_kernel(x.to(torch.bfloat16), off, mask, w,
+                                          None if epilogue else b, 2, epilogue=fused)
+    torch.cuda.synchronize()
+    assert torch.equal(folded, cast_first)
