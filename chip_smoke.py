@@ -19,7 +19,8 @@ Phases, one line each; any failure exits non-zero and prints no result:
              model on the plain op (bf16 x as served, and f32 x).
   5. bwd     the two backward kernels (dx; dmask, dW and doffset) against
              the plain backward at the neck's shapes, batch 8, R=2, x in
-             bf16: max errors against the tolerances, ms per call of each.
+             bf16: max errors against the tolerances, each kernel's two
+             launches bit-equal, ms per call of each.
   6. train   the training step on the same model and batch size: one
              warm-up step, then 3 steps that must launch each of the three
              kernels 16 times per step, give 11 finite loss terms and no
@@ -43,8 +44,9 @@ Phases, one line each; any failure exits non-zero and prints no result:
              time); the relayout kernel against its plain version and
              F.pad(x.permute(...)) at transpose_ablate's default shape; the
              bf16 window math of dcn_fwd, dcn_bwd_dx and dcn_bwd_dwmo against
-             the plain op at the neck's shapes; then the four tools through
-             their entry points (python -m monoflex_tpu_torch.tools.<tool>),
+             the plain op at the neck's shapes (dx twice bit-equal); then
+             the four tools through their entry points
+             (python -m monoflex_tpu_torch.tools.<tool>),
              each a process whose launch counts start at 0 and are written
              at its end: kernel_bench (f32r2,bf16r1, all shapes, --bwd),
              kernel_diag at its defaults, fwd_ablate --parity with every
@@ -199,8 +201,11 @@ BF16_TC_PEAK_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 # bf16 tensor-core passes of an f32-class product of split operands
 # (csrc/sm90_mma.cuh): dcn_fwd splits each operand in three parts and takes
-# six products (the f32 class), dcn_bwd_dwmo in two and takes three
-TC_PASSES = {"fwd": 6, "fwd_bn_relu": 6, "dwmo": 3}
+# six products (the f32 class), dcn_bwd_dwmo and dcn_bwd_dx in two and take
+# three.  Under bf16 window math the function's operands are bf16 and one
+# pass computes it; the bound counts that one pass for every kernel, though
+# dcn_bwd_dx spends a second on the lo part of its reassociated z
+TC_PASSES = {"fwd": 6, "fwd_bn_relu": 6, "dwmo": 3, "dx": 3}
 
 
 def phase(name: str, msg: str) -> None:
@@ -226,14 +231,13 @@ def dcn_work(kind: str, H: int, W: int, C: int, Co: int, x_bytes: int, bf16_math
     call needs at batch BATCH: each input read once, each output written
     once.  Operations: the 9*C*Co contraction per pixel (2 each, multiply
     and add), 8 per sampled (pixel, tap, channel) for the 4 bilinear
-    corners; dwmo also forms u = W g (a second contraction), samples the
-    two offset derivatives and takes 3 channel dots; the epilogue adds 3
-    per output (scale, shift, max).  Where a contraction runs on the tensor
-    cores it is counted there, at the bf16 rate: dcn_fwd (and its epilogue
-    form) and dcn_bwd_dwmo take an f32-class product as TC_PASSES[kind]
-    bf16 passes of split operands, and one pass under ``bf16_math``, whose
-    operands are bf16 already; dcn_bwd_dx, not on the tensor cores, counts
-    its f32 contraction at the f32 rate (its bf16 math at one pass).  The
+    corners (dx gathers the same 4 corners per source, mirrored); dwmo also
+    forms u = W g (a second contraction), samples the two offset
+    derivatives and takes 3 channel dots; the epilogue adds 3 per output
+    (scale, shift, max).  Every contraction runs on the tensor cores and is
+    counted there, at the bf16 rate: an f32-class product as
+    TC_PASSES[kind] bf16 passes of split operands, and one pass under
+    ``bf16_math``, whose operands are bf16 already.  The
     sampling stays f32.  The ablations (ops/dcn_ablate.py) at R: dma moves
     x; window takes the 4 corners and the tap sum (9 per sampled element),
     aligned 2 row corners (5); matmul the contraction and the mask (1);
@@ -259,8 +263,6 @@ def dcn_work(kind: str, H: int, W: int, C: int, Co: int, x_bytes: int, bf16_math
             nbytes = offset_mask + weight + n * Co * f32 + n * C * f32
         else:                # outputs dmask, doffset and dW
             nbytes = n * C * x_bytes + offset_mask + weight + n * Co * f32 + offset_mask + weight
-        if kind == "dx" and not bf16_math:
-            return products + sampling, nbytes, 0
         return sampling, nbytes, passes * products
     if bf16_math:
         raise ValueError(f"{kind} has no bf16 math")
@@ -488,6 +490,8 @@ def check_backward() -> dict:
         again = kernel_dwmo()
         if not all(torch.equal(a, b) for a, b in zip((dmask, dw, doff), again)):
             raise AssertionError(f"dcn_bwd_dwmo {(BATCH, H, W, C, Co)}: two launches differ")
+        if not torch.equal(dx, kernel_dx()):
+            raise AssertionError(f"dcn_bwd_dx {(BATCH, H, W, C, Co)}: two launches differ")
         del again
         rdx, rdoff, rdmask, rdw, _ = modulated_deform_conv_backward(
             x.float(), off, mask, w, gy, max_offset=R)
@@ -523,7 +527,7 @@ def check_backward() -> dict:
                      + " ".join(f"{k}_err={v:.3e}" for k, v in errs.items())
                      + f" (tol {BWD_RTOL} of max |ref|) "
                      + " ".join(f"{k}_ms={v:.4f}" for k, v in times.items())
-                     + "; dwmo twice bit-equal")
+                     + "; dx and dwmo each twice bit-equal")
         del x, off, mask, w, gy, args
         torch.cuda.empty_cache()
     out = {}
@@ -926,7 +930,8 @@ def bf16_math_errors(x, off, mask, w, b, gy, max_offset: int):
     """The bf16-math kernels' outputs against the plain op and its backward
     in bf16 math, and the f32-math kernels' against the same: per output
     (fwd, dx, dmask, doffset, dW), (max abs error of the bf16 kernel, its
-    share of max |ref|, the f32 kernel's share)."""
+    share of max |ref|, the f32 kernel's share).  The bf16-math dx must be
+    bit-equal over two launches."""
     bf16, f32 = torch.bfloat16, torch.float32
     ref = dict(zip(("dx", "doffset", "dmask", "dW"), modulated_deform_conv_backward(
         x, off, mask, w, gy, max_offset=max_offset, compute_dtype=bf16)))
@@ -940,6 +945,10 @@ def bf16_math_errors(x, off, mask, w, b, gy, max_offset: int):
             got[dt] = {"fwd": dcn_cuda.dcn_forward(x, off, mask, w, b, **kw),
                        "dx": dcn_cuda.dcn_bwd_dx(x, off, mask, w, gy, **kw),
                        "dmask": dmask, "doffset": doff, "dW": dw}
+        again = dcn_cuda.dcn_bwd_dx(x, off, mask, w, gy, max_offset=max_offset,
+                                    compute_dtype=bf16)
+    if not torch.equal(got[bf16]["dx"], again):
+        raise AssertionError(f"bf16 math dx {tuple(x.shape)} R={max_offset}: two launches differ")
     out = {}
     for key in ("fwd", "dx", "dmask", "doffset", "dW"):
         if not torch.isfinite(got[bf16][key]).all():
@@ -981,7 +990,9 @@ def check_bf16_math() -> dict:
                     worst[k] = max(worst[k], err)
             phase("diag", f"bf16 math B,H,W,C,Co={(BATCH, H, W, C, Co)} R={r} share of max |ref| "
                           f"(tol {BF16_RTOL}), bf16-math kernel / f32-math kernel vs bf16 plain: "
-                          + " ".join(f"{k}={rel:.3e}/{gap:.3e}" for k, (_, rel, gap) in errs.items()))
+                          + " ".join(f"{k}={rel:.3e}/{gap:.3e}"
+                                     for k, (_, rel, gap) in errs.items())
+                          + "; dx twice bit-equal")
         kw = dict(max_offset=R, compute_dtype=bf16)
         runs = {
             "fwd": (lambda: dcn_cuda.dcn_forward(x, off, mask, w, b, **kw),
@@ -1152,7 +1163,7 @@ def build_report() -> dict:
     out_dir = dcn_cuda.build_dir()
     report = {}
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    for src in ("dcn_fwd", "dcn_bwd_dwmo"):
+    for src in ("dcn_fwd", "dcn_bwd_dwmo", "dcn_bwd_dx"):
         log = (out_dir / f"{src}.log").read_text()
         kernels = []
         name, spills = None, "spills ?"
@@ -1175,8 +1186,12 @@ def build_report() -> dict:
             fn = short_kernel_name(block.split()[0])
             hgmma[fn] = hgmma.get(fn, 0) + block.count("HGMMA")
         if not any(hgmma.get(k, 0) for k in hgmma if "mo_kernel" in k or "fwd_kernel" in k
-                   or "dw_kernel" in k):
+                   or "dw_kernel" in k or "dx_kernel" in k):
             raise AssertionError(f"{src}: no HGMMA in its SASS")
+        # every instantiation of the dx kernel runs its product on wgmma
+        bare = [k for k, v in hgmma.items() if "dx_kernel" in k and not v]
+        if bare:
+            raise AssertionError(f"{src}: no HGMMA in {bare}")
         report[src] = ("; ".join(kernels) + " | HGMMA per instantiation: "
                        + ", ".join(f"{k}={v}" for k, v in sorted(hgmma.items())))
     return report
@@ -1185,7 +1200,7 @@ def build_report() -> dict:
 def short_kernel_name(mangled: str) -> str:
     """A mangled instantiation's kernel name and template arguments, e.g.
     dcn_fwd_kernel<f,1,0,128>."""
-    m = re.search(r"\d+((?:dcn|fwd|dwmo)_\w+?_kernel)(?:I(.*?)EEv)?", mangled)
+    m = re.search(r"\d+((?:dcn|fwd|dwmo|dx)_\w+?_kernel)(?:I(.*?)EEv)?", mangled)
     if not m:
         return mangled[:40]
     flat = re.findall(r"Lb(\d)E|Li(\d+)E|(13__nv_bfloat16)|(f)", m.group(2) or "")

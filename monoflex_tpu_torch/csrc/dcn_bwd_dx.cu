@@ -1,190 +1,571 @@
 // Modulated deformable 3x3 convolution (DCNv2), input gradient dx, for sm_90a.
 //
-//   dx[b,q,c] = sum_k sum_p  corner_weight(p,k -> q) * m_k(p) * u_k(p)[c],
-//   u_k(p)    = W_k g(p)      (W_k is (C, Co), g(p) the output gradient at p)
+//   z_k[q]   = sum_{e,f in [-R',R']} wt_k(p -> q) * g(p),  p = q - (ky + e, kx + f)
+//   dx[q, :] = sum_k W_k z_k[q]                      (W_k is (C, Co))
+//
+// with wt_k(p -> q) the bilinear weight (times the mask m_k(p)) of the corner
+// of p's tap-k sample that lands on q, 0 where none does, and R' = ceil(R).
 //
 // Replaces the TPU kernel monoflex_tpu/ops/dcn_pallas_v3.py::dcn_pallas_v5_bwd_dx
-// (body _dx5_kernel; dx3 and dx4 compute the same function).  dx5 mirrors the
-// forward's hat window onto g and contracts W_k after the window sum, because
-// Mosaic cannot scatter.  Hopper can: this kernel is col2im.  Per block of TP
-// pixels x TC input channels and per tap, it forms the u_k tile in registers
-// from g and W_k staged in shared memory (the Co contraction is here, in the
-// kernel's own body), then scatters each pixel's 4 bilinear corners, weighted
-// by corner weight x mask, into dx with f32 atomicAdd.  The offsets are
-// clamped to +-R as in the forward; g and dx are f32 (g is never rounded:
-// dx5 always takes g in f32).
+// (body _dx5_kernel; dx3 and dx4 compute the same function, and so do the v1/v2
+// dx kernels under their routes).  dx5 reassociates the contraction: the hat
+// window is summed over g first, then W_k contracts the window sum.  This
+// kernel takes that form as a mirrored gather: each output pixel q collects
+// the corners of the source pixels whose samples land on it, with the corner
+// weights taken at the source, and every sum runs in a fixed order (no
+// atomics), so two launches are bit-equal, as on the TPU.
 //
-// Atomics make dx not bitwise reproducible: the order in which the up to
-// 9 x (2R+2)^2 contributions to one dx element land varies from run to run.
-// Each sum is f32 either way; tests compare with a tolerance that allows it.
+// Design.  A block owns an 8 x 16 tile of output pixels (128, two m64 wgmma
+// row groups) x BN input channels (BN = 128 where C > 64, else 64), and walks
+// the 64-channel chunks of Co and, per chunk, the 9 taps.  The offsets are
+// clamped to +-R, so every source pixel the tile needs lies in the tile grown
+// by P = R' + 1 on each side (ky adds one):
+//  - staged once per block: the halo's offsets and masks (by cp.async), and
+//    from them per (halo pixel, tap) the floor of the sample point relative
+//    to the tap (two small ints), its fractional parts and the mask, from
+//    which any corner weight is a subtract, a compare and two
+//    multiplies; a halo pixel off the map gets a code no candidate matches;
+//  - staged once per Co chunk: g's halo (f32, zero off the map), by
+//    cp.async, serving all 9 taps.  Where 64 channels do not fit beside the
+//    rest (R' >= 3), the chunk is taken in two halves of 32 channels, each a
+//    stage of two k-steps;
+//  - the producer, all 16 warps, four output pixels a warp at a time, eight
+//    lanes each: the lanes of a pixel test its (2R'+1)^2 candidate sources
+//    against the staged floors, 32 at a time (four rounds of eight), a
+//    ballot marks the ones whose corner lands on q and each hit leaves its
+//    weight in the pixel's list; the pixel's lanes walk the list in
+//    candidate order, two sources a step, each lane accumulating its 8
+//    channels of z (4 at HC = 32) in f32 from g's halo (16-byte reads, a
+//    pixel's 8 lanes one 128-byte row: no bank conflicts); z is split into
+//    bf16 hi and lo and written into the swizzled A tile (128 pixels x 64
+//    channels) that wgmma reads (sm90_mma.cuh);
+//  - the products: after the stage's barrier, warpgroup wg < BN / 32 takes
+//    rows 64 (wg % 2) .. + 63 and input channels 64 (wg / 2) .. + 63 on
+//    wgmma into a fresh accumulator, waits and adds it into the f32 sum
+//    with round-to-nearest adds; at BN = 64 warpgroups 2 and 3 meanwhile
+//    sample the next stage into the other of two A buffers, as in
+//    dcn_fwd.cu.  W's chunk (W_k^T's block, rows of input channels, laid
+//    out by dx_weight_image_kernel, launched first) has one buffer: once
+//    every product warpgroup is done with it (a named barrier), thread 0
+//    bulk-copies the next stage's chunk onto the mbarrier, which lands while
+//    the warps sample.  BN = 128 shares each gathered z between twice the
+//    channels; that needs the W buffer the second A stage would not leave.
+// Each output element is written once, so dx needs no zeroing.
 //
-// bf16 window math (kBf16Math, the compute_dtype=bfloat16 mode of
-// monoflex_tpu/ops/dcn_pallas_bwd.py::dcn_pallas_bwd_dx and the v2 dx
-// kernels): g, W and each corner weight times the mask are rounded to bf16,
-// u_k and dx accumulate in f32.
+// Precision.  z and W are split into two bf16 parts and a z W is taken as
+// z_hi W_hi + z_hi W_lo + z_lo W_hi: three passes, within about 2^-16 of
+// each product, the class of dcn_bwd_dwmo.  Each stage (64 channels of one
+// tap) goes into a fresh accumulator.  Under bf16 window math (kBf16Math, the
+// compute_dtype=bfloat16 mode of monoflex_tpu/ops/dcn_pallas_bwd.py::
+// dcn_pallas_bwd_dx and the v2 dx kernels) g, W and each corner weight times
+// the mask are rounded to bf16 and the sums are f32; W's lo part is then 0,
+// but z, a sum of products, is not bf16-exact, so two passes remain
+// (z_hi W + z_lo W).
 //
 // Layouts: offset (B,H,W,18) interleaved (dy_k, dx_k), mask (B,H,W,9),
-// weight (9,C,Co), g (B,H,W,Co), dx (B,H,W,C), all f32 and contiguous; dx must
-// be zeroed by the caller.
+// weight (9,C,Co) f32 (read only by the layout kernel), w_img
+// (9, ceil(Co/64), ceil(C/BN), 2, BN, 64) bf16 scratch (ops/dcn_cuda.py::
+// dx_weight_image), g (B,H,W,Co) f32, dx (B,H,W,C) f32.  All contiguous.
 //
-// What bounds it.  The u_k products are 2*9*C*Co FLOP per pixel, as in the
-// forward (18 GFLOP at (8,96,320,64->64)), done as plain f32 FMAs from shared
-// memory; the scatter is 36*C atomics per pixel (566 M at that shape), which
-// land in L2 and contend little (neighbouring pixels hit different rows of dx
-// except where their windows overlap).  Moving the u_k product onto wgmma and
-// the scatter onto a deterministic mirrored gather are later work.
+// What bounds it.  The products are 2*9*C*Co per pixel, 213 GFLOP per step
+// over the neck's 16 layers at batch 8: at three bf16 passes on the tensor
+// cores (989 TFLOP/s dense) 0.646 ms, beside about 0.15 ms of f32 sampling.
+// What holds it back after this design: the producer, not the products.
+// Each (pixel, tap, chunk) costs (2R'+1)^2 candidate tests over 8 lanes and
+// about four shared-load + FMA steps, latency-bound at 16 warps an SM (one
+// block fills an SM's shared memory); at BN = 64 the products of warpgroups
+// 0 and 1 delay their sampling; the A tile is still rebuilt for each
+// 128-channel tile of C (4 times at C = 512); a block stages its halo and
+// floors before its first product.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "sm90_mma.cuh"
 
 namespace {
 
-constexpr int TP = 64;        // pixels per block
-constexpr int TC = 64;        // input channels per block
-constexpr int TK = 32;        // output channels per staged chunk
-constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
+using sm90::kRowBytes;
 
-// v rounded to bf16 and back under bf16 window math; v itself otherwise
-template <bool kRound>
-__device__ __forceinline__ float rnd(float v) {
-  if constexpr (kRound) return __bfloat162float(__float2bfloat16(v));
-  return v;
+constexpr int TH = 8;                    // output tile rows
+constexpr int TW = 16;                   // output tile columns
+constexpr int BM = TH * TW;              // 128 pixels: two m64 warpgroups
+constexpr int BK = 64;                   // output-gradient channels per W chunk
+constexpr int PARTS = 2;                 // bf16 parts of z and W (hi, lo)
+constexpr int THREADS = 512;             // four warpgroups, all sample
+constexpr int A_BYTES = BM * kRowBytes;  // one part of A
+constexpr int NW = 64;                   // input channels a product warpgroup takes
+constexpr int kSmemLimit = 232448;       // a block's dynamic shared memory on sm_90
+constexpr int kMaxCand = 96;             // candidates (2R'+1)^2 <= 96: R' <= 4
+constexpr uint16_t kNoSource = 0xFFFF;   // floor code of a halo pixel off the map
+
+__host__ __device__ constexpr int align16(int v) { return (v + 15) & ~15; }
+
+// The shared-memory layout for clamp reach R', halo channels HC and BN input
+// channels a block; the launch is sized from it (halo_channels below).
+struct Layout {
+  int P, hw, nh;                      // halo margin, width, pixels
+  int a, w, halo, code, ly, lx, m, cand, list, bar, bytes;
+  __host__ __device__ Layout(int reach, int hc, int bn) {
+    P = reach + 1;
+    hw = TW + 2 * P;
+    nh = (TH + 2 * P) * hw;
+    a = 0;                                      // 2 stages x PARTS x A
+    w = 2 * PARTS * A_BYTES;                    // PARTS x W chunk (bn rows)
+    halo = w + PARTS * bn * kRowBytes;          // g: nh x hc f32
+    code = halo + nh * hc * 4;                  // floors: 9 x nh u16
+    ly = code + align16(9 * nh * 2);            // fractional parts and mask:
+    lx = ly + 9 * nh * 4;                       // 9 x nh f32 each
+    m = lx + 9 * nh * 4;
+    cand = m + 9 * nh * 4;                      // the candidates: kMaxCand u32
+    list = cand + kMaxCand * 4;                 // per pixel in flight: 32 weights
+    bar = list + THREADS / 8 * 32 * 4;          // the W chunk's mbarrier
+    bytes = bar + 8 + 1024;                     // + the 1024-byte alignment
+  }
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  // the bytes past src_bytes are filled with zeros
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(sm90::smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(sm90::smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-template <bool kBf16Math>
-__global__ void __launch_bounds__(THREADS)
+template <bool kBf16Math, int HC, int BN>
+__global__ void __launch_bounds__(THREADS, 1)
 dcn_bwd_dx_kernel(const float* __restrict__ offset, const float* __restrict__ mask,
-                  const float* __restrict__ weight, const float* __restrict__ g,
-                  float* __restrict__ dx, int B, int H, int W, int C, int Co, float R) {
-  __shared__ int s_idx[TP][4];          // element offset of each corner's C run
-  __shared__ float s_wt[TP][4];         // bilinear weight x mask, 0 outside the map
-  __shared__ float s_g[TK][TP + 1];     // g chunk, [co][p]
-  __shared__ float s_w[TK][TC + 1];     // W_k chunk, [co][c]
-  __shared__ float s_u[TP][TC + 1];     // u_k tile, [p][c]
+                  const __nv_bfloat16* __restrict__ w_img, const float* __restrict__ g,
+                  float* __restrict__ dx, int H, int W, int C, int Co, float R, int reach) {
+  constexpr int kHalves = BK / HC;   // stages per (chunk, tap)
+  constexpr int kSteps = HC / 16;    // wgmma k-steps per stage
+  constexpr int kZ = HC / 8;         // channels of z a lane holds
+  constexpr int kProd = BN / 32;     // warpgroups that multiply: 2 or 4
+  constexpr int B_BYTES = BN * kRowBytes;  // one part of W's chunk
+  const Layout L(reach, HC, BN);
+  extern __shared__ uint8_t smem_raw[];
+  // aligned to 1024 bytes by an offset from smem_raw, not by integer casts,
+  // so the compiler keeps every access in the shared window (LDS/STS, 32-bit
+  // addresses) instead of generic loads with 64-bit address arithmetic
+  uint8_t* smem = smem_raw + ((1024u - (sm90::smem_u32(smem_raw) & 1023u)) & 1023u);
+  float* s_halo = reinterpret_cast<float*>(smem + L.halo);
+  uint16_t* s_code = reinterpret_cast<uint16_t*>(smem + L.code);
+  float* s_ly = reinterpret_cast<float*>(smem + L.ly);
+  float* s_lx = reinterpret_cast<float*>(smem + L.lx);
+  float* s_m = reinterpret_cast<float*>(smem + L.m);
+  uint32_t* s_cand = reinterpret_cast<uint32_t*>(smem + L.cand);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bar);  // W of the stage
 
   const int tid = threadIdx.x;
-  const int npix = B * H * W;
-  const int p0 = blockIdx.x * TP;
-  const int c0 = blockIdx.y * TC;
-  const int tp = tid / 16;
-  const int tc = tid % 16;
+  const int wg = tid >> 7;
+  const int warp = (tid >> 5) & 3;
+  const int wid = tid >> 5;
+  const int lane = tid & 31;
+  const int P = L.P, hw = L.hw, nh = L.nh;
+  const int tiles_x = (W + TW - 1) / TW;
+  const int tiles_y = (H + TH - 1) / TH;
+  const int x0 = (blockIdx.x % tiles_x) * TW;
+  const int y0 = ((blockIdx.x / tiles_x) % tiles_y) * TH;
+  const int b = blockIdx.x / (tiles_x * tiles_y);
+  const int ct = blockIdx.y;
+  const int n_ct = gridDim.y;
+  const int n_cc = (Co + BK - 1) / BK;
+  const int n_stages = n_cc * kHalves * 9;
+  const uint32_t w_bytes = (kBf16Math ? 1 : PARTS) * B_BYTES;
 
-  for (int k = 0; k < 9; ++k) {
+  // stage s = ((cc * kHalves) + half) * 9 + k; its W chunk completes phase
+  // s % 2 of the mbarrier
+  auto copy_w = [&](int s) {
+    const int k = s % 9;
+    const int cc = s / (9 * kHalves);
+    const long long chunk = (static_cast<long long>(k) * n_cc + cc) * n_ct + ct;
+    sm90::mbar_arrive_expect_tx(full, w_bytes);
+    sm90::bulk_copy(smem + L.w, w_img + chunk * PARTS * BN * BK, w_bytes, full);
+  };
+
+  // g's halo for channels c0 .. c0 + HC - 1, zero off the map and past Co;
+  // the caller waits for the copies (cp_async_wait_all) and syncs
+  const bool gvec = (Co % 4 == 0) && (reinterpret_cast<uintptr_t>(g) % 16 == 0);
+  auto stage_halo = [&](int c0) {
+    for (int u = tid; u < nh * (HC / 4); u += THREADS) {
+      const int hp = u / (HC / 4);
+      const int c = c0 + 4 * (u % (HC / 4));
+      const int hy = y0 - P + hp / hw;
+      const int hx = x0 - P + hp % hw;
+      const bool in = hy >= 0 && hy < H && hx >= 0 && hx < W;
+      float* dst = s_halo + hp * HC + (c - c0);
+      const long long src = (static_cast<long long>(b * H + hy) * W + hx) * Co + c;
+      if (gvec && !kBf16Math) {
+        const int bytes = in ? max(0, min(16, 4 * (Co - c))) : 0;
+        cp_async16(dst, bytes ? g + src : g, bytes);
+      } else {
+        float v[4] = {0.f, 0.f, 0.f, 0.f};
+        if (gvec && in && c + 4 <= Co) {
+          const float4 t = __ldg(reinterpret_cast<const float4*>(g + src));
+          v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (in && c + e < Co) v[e] = g[src + e];
+        }
+        if constexpr (kBf16Math) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) v[e] = sm90::bf16_round(v[e]);
+        }
+        *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+      }
+    }
+  };
+
+  if (tid == 0) {
+    sm90::mbar_init(full, 1);
+    sm90::mbar_init_fence();
+  }
+  // the halo's offsets and masks (raw, 27 a pixel, zero off the map) into the
+  // A stages, which the first sampling overwrites; g's halo beside them
+  float* s_raw = reinterpret_cast<float*>(smem + L.a);
+  for (int u = tid; u < nh * 27; u += THREADS) {
+    const int hp = u / 27;
+    const int t = u % 27;
+    const int hy = y0 - P + hp / hw;
+    const int hx = x0 - P + hp % hw;
+    const bool in = hy >= 0 && hy < H && hx >= 0 && hx < W;
+    const long long pix = static_cast<long long>(b * H + hy) * W + hx;
+    const float* src = t < 18 ? offset + pix * 18 + t : mask + pix * 9 + t - 18;
+    cp_async4(s_raw + u, in ? src : offset, in ? 4 : 0);
+  }
+  stage_halo(0);
+  // the candidates: entry ci is the source p = q - (ky + e, kx + f), (e, f)
+  // = (ci / D - R', ci % D - R'), as its halo offset from q - (ky, kx) - (P, P)
+  // (low 16 bits), e + 128 and f + 128 (a byte each); past the last, the
+  // centre with a code no floor matches
+  const int D = 2 * reach + 1;
+  const int n_cand = D * D;
+  if (tid < kMaxCand) {
+    const int e = tid / D - reach;
+    const int f = tid % D - reach;
+    s_cand[tid] = tid < n_cand ? static_cast<uint32_t>((P - e) * hw + (P - f)) |
+                                     static_cast<uint32_t>(e + 128) << 16 |
+                                     static_cast<uint32_t>(f + 128) << 24
+                               : static_cast<uint32_t>(P * hw + P) | 0xFFFF0000u;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  // per (halo pixel, tap): the floor of the sample point relative to the
+  // tap's integer point (dy0, dx0 in [-R', R'], stored + 128), its fractional
+  // parts and the mask, computed as the plain op computes them
+  for (int u = tid; u < nh * 9; u += THREADS) {
+    const int hp = u / 9;
+    const int k = u % 9;
+    const int hy = y0 - P + hp / hw;
+    const int hx = x0 - P + hp % hw;
+    uint16_t code = kNoSource;
+    float ly = 0.f, lx = 0.f, m = 0.f;
+    if (hy >= 0 && hy < H && hx >= 0 && hx < W) {
+      const int ty = hy + k / 3 - 1;
+      const int tx = hx + k % 3 - 1;
+      const float oy = fminf(fmaxf(s_raw[hp * 27 + 2 * k], -R), R);
+      const float ox = fminf(fmaxf(s_raw[hp * 27 + 2 * k + 1], -R), R);
+      const float py = static_cast<float>(ty) + oy;
+      const float px = static_cast<float>(tx) + ox;
+      const float fy = floorf(py);
+      const float fx = floorf(px);
+      ly = py - fy;
+      lx = px - fx;
+      m = s_raw[hp * 27 + 18 + k];
+      code = static_cast<uint16_t>((static_cast<int>(fy) - ty + 128) |
+                                   ((static_cast<int>(fx) - tx + 128) << 8));
+    }
+    s_code[k * nh + hp] = code;
+    s_ly[k * nh + hp] = ly;
+    s_lx[k * nh + hp] = lx;
+    s_m[k * nh + hp] = m;
+  }
+  __syncthreads();  // barriers initialised; halo, floors and candidates in place
+  if (tid == 0) copy_w(0);
+
+  const int grp = lane >> 3;  // the warp's pixel this lane works on (4 a warp)
+  const int j = lane & 7;     // and its channels 4j .. 4j + 3 (+ 32 at HC = 64)
+  // the weights of the hits of this lane's pixel, by candidate bit
+  float* s_list = reinterpret_cast<float*>(smem + L.list) + (tid >> 3) * 32;
+  const int batches = (n_cand + 31) / 32;
+
+  float acc[NW / 2];
+#pragma unroll
+  for (int i = 0; i < NW / 2; ++i) acc[i] = 0.f;
+
+  for (int s = 0; s < n_stages; ++s) {
+    const int buf = s & 1;
+    const int k = s % 9;
+    const int half = (s / 9) % kHalves;
+    const int cc = s / (9 * kHalves);
+    if (k == 0 && s > 0) {
+      // the next chunk's halo: the last reads of this one (stage s - 1's
+      // sampling) finished before the last barrier, and no product reads it
+      stage_halo(cc * BK + half * HC);
+      cp_async_wait_all();
+      __syncthreads();
+    }
+    uint8_t* a = smem + L.a + buf * PARTS * A_BYTES;
     const int ky = k / 3 - 1;
     const int kx = k % 3 - 1;
-    __syncthreads();  // the previous tap's scatter no longer reads s_idx/s_wt/s_u
-    {
-      // 256 threads = TP pixels x 4 corners
-      const int p = tid / 4;
-      const int corner = tid % 4;
-      const int pix = p0 + p;
-      int idx = 0;
-      float wt = 0.f;
-      if (pix < npix) {
-        const int w = pix % W;
-        const int h = (pix / W) % H;
-        const int b = pix / (W * H);
-        const float oy = fminf(fmaxf(offset[pix * 18 + 2 * k], -R), R);
-        const float ox = fminf(fmaxf(offset[pix * 18 + 2 * k + 1], -R), R);
-        const float py = h + ky + oy;
-        const float px = w + kx + ox;
-        const float fy = floorf(py);
-        const float fx = floorf(px);
-        const float ly = py - fy;
-        const float lx = px - fx;
-        const int dy = corner >> 1;
-        const int dxc = corner & 1;
-        const int yy = static_cast<int>(fy) + dy;
-        const int xx = static_cast<int>(fx) + dxc;
-        if (yy >= 0 && yy < H && xx >= 0 && xx < W) {
-          idx = ((b * H + yy) * W + xx) * C;
-          wt = rnd<kBf16Math>((dy ? ly : 1.f - ly) * (dxc ? lx : 1.f - lx) * mask[pix * 9 + k]);
+    const uint16_t* code_k = s_code + k * nh;
+    const float* ly_k = s_ly + k * nh;
+    const float* lx_k = s_lx + k * nh;
+    const float* m_k = s_m + k * nh;
+    // ---- the producer: z_k of 128 pixels, 4 a warp at a time, 8 lanes each ----
+    for (int pass = 0; pass < BM / 64; ++pass) {
+      const int row = 64 * pass + 4 * wid + grp;
+      const int ty = row / TW;
+      const int tx = row % TW;
+      const bool q_in = y0 + ty < H && x0 + tx < W;
+      const int base = (ty - ky) * hw + (tx - kx);
+      float z[kZ];
+#pragma unroll
+      for (int i = 0; i < kZ; ++i) z[i] = 0.f;
+      for (int batch = 0; batch < batches; ++batch) {
+        // test 32 candidates (4 rounds of 8 lanes); bit 8 i + j of `hits` is
+        // this pixel's candidate 32 batch + 8 i + j, whose weight the lane
+        // that found it leaves in the pixel's list
+        unsigned hits = 0;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const uint32_t cand = s_cand[32 * batch + 8 * i + j];
+          const int hp = base + static_cast<int>(cand & 0xFFFFu);  // always in the halo
+          // 256 (f - dx0) + (e - dy0): the corner (dy, dx) of p that lands on
+          // q where it is dy + 256 dx with dy, dx in {0, 1}.  Branch-free: the
+          // weight is formed for every candidate and kept for the hits
+          const int diff = static_cast<int>(cand >> 16) - code_k[hp];
+          const float ly = ly_k[hp];
+          const float lx = lx_k[hp];
+          float w = ((diff & 1) ? ly : 1.f - ly) * ((diff & 0x100) ? lx : 1.f - lx) * m_k[hp];
+          if constexpr (kBf16Math) w = sm90::bf16_round(w);
+          const bool hit = q_in && (diff & ~0x101) == 0 && w != 0.f;
+          if (hit) s_list[8 * i + j] = w;
+          hits |= ((__ballot_sync(0xffffffffu, hit) >> (8 * grp)) & 0xFFu) << (8 * i);
         }
+        __syncwarp();
+        // the sources whose corner lands on q, in candidate order, two a
+        // step (the second with weight 0 past the end of the list)
+        const uint32_t* cand_b = s_cand + 32 * batch;
+        while (hits) {
+          const int b0 = __ffs(hits) - 1;
+          hits &= hits - 1;
+          const bool two = hits != 0;
+          const int b1 = two ? __ffs(hits) - 1 : b0;
+          hits &= hits - 1;
+          const float w0 = s_list[b0];
+          const float w1 = two ? s_list[b1] : 0.f;
+          const float* g0 = s_halo + (base + static_cast<int>(cand_b[b0] & 0xFFFFu)) * HC + 4 * j;
+          const float* g1 = s_halo + (base + static_cast<int>(cand_b[b1] & 0xFFFFu)) * HC + 4 * j;
+          float4 v0[kZ / 4], v1[kZ / 4];
+#pragma unroll
+          for (int h = 0; h < kZ / 4; ++h) {
+            v0[h] = *reinterpret_cast<const float4*>(g0 + 32 * h);
+            v1[h] = *reinterpret_cast<const float4*>(g1 + 32 * h);
+          }
+#pragma unroll
+          for (int h = 0; h < kZ / 4; ++h) {
+            z[4 * h] = fmaf(w0, v0[h].x, z[4 * h]);
+            z[4 * h + 1] = fmaf(w0, v0[h].y, z[4 * h + 1]);
+            z[4 * h + 2] = fmaf(w0, v0[h].z, z[4 * h + 2]);
+            z[4 * h + 3] = fmaf(w0, v0[h].w, z[4 * h + 3]);
+          }
+#pragma unroll
+          for (int h = 0; h < kZ / 4; ++h) {
+            z[4 * h] = fmaf(w1, v1[h].x, z[4 * h]);
+            z[4 * h + 1] = fmaf(w1, v1[h].y, z[4 * h + 1]);
+            z[4 * h + 2] = fmaf(w1, v1[h].z, z[4 * h + 2]);
+            z[4 * h + 3] = fmaf(w1, v1[h].w, z[4 * h + 3]);
+          }
+        }
+        __syncwarp();  // the list is read before the next batch writes it
       }
-      s_idx[p][corner] = idx;
-      s_wt[p][corner] = wt;
+      // z split into bf16 hi and lo, 4 channels (8 bytes) at a time, into A's
+      // swizzled row at this stage's columns
+#pragma unroll
+      for (int h = 0; h < kZ / 4; ++h) {
+        const int col = half * HC + 32 * h + 4 * j;
+        const int off = sm90::swz(row, col >> 3) + 2 * (col & 7);
+        const __nv_bfloat162 h0 = __floats2bfloat162_rn(z[4 * h], z[4 * h + 1]);
+        const __nv_bfloat162 h1 = __floats2bfloat162_rn(z[4 * h + 2], z[4 * h + 3]);
+        const float2 f0 = __bfloat1622float2(h0);
+        const float2 f1 = __bfloat1622float2(h1);
+        const __nv_bfloat162 l0 = __floats2bfloat162_rn(z[4 * h] - f0.x, z[4 * h + 1] - f0.y);
+        const __nv_bfloat162 l1 = __floats2bfloat162_rn(z[4 * h + 2] - f1.x, z[4 * h + 3] - f1.y);
+        auto u32 = [](const __nv_bfloat162& v) { return *reinterpret_cast<const uint32_t*>(&v); };
+        *reinterpret_cast<uint2*>(a + off) = make_uint2(u32(h0), u32(h1));
+        *reinterpret_cast<uint2*>(a + A_BYTES + off) = make_uint2(u32(l0), u32(l1));
+      }
     }
-
-    // u_k tile: acc[i][j] = u_k(p0 + tp + 16i)[c0 + tc + 16j]
-    float acc[4][4];
+    sm90::fence_proxy_async();
+    __syncthreads();  // stage s's A tile is complete, stage s - 1's products done
+    // ---- products on wgmma: warpgroup wg < kProd takes rows 64 (wg % 2) ..
+    // + 63 and input channels 64 (wg / 2) .. + 63 into a fresh accumulator,
+    // added into the f32 sum; at BN = 64 warpgroups 2 and 3 go on to sample
+    // the next stage ----
+    if (wg < kProd) {
+      sm90::mbar_wait(full, s & 1);
+      const uint32_t a0 = sm90::smem_u32(a) + (wg & 1) * (A_BYTES / 2);
+      const uint32_t b0 = sm90::smem_u32(smem + L.w) + (wg >> 1) * NW * kRowBytes;
+      auto da = [&](int p, int kk) { return sm90::desc(a0 + p * A_BYTES + 32 * kk, 16, 1024); };
+      auto db = [&](int p, int kk) { return sm90::desc(b0 + p * B_BYTES + 32 * kk, 16, 1024); };
+      float part[NW / 2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < NW / 2; ++i) part[i] = 0.f;
+      sm90::wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-    for (int co0 = 0; co0 < Co; co0 += TK) {
-      for (int e = tid; e < TK * TP; e += THREADS) {
-        const int co = e % TK;
-        const int p = e / TK;
-        s_g[co][p] = (p0 + p < npix && co0 + co < Co)
-                         ? rnd<kBf16Math>(g[static_cast<long long>(p0 + p) * Co + co0 + co])
-                         : 0.f;
+      for (int i = 0; i < kSteps; ++i) {
+        const int kk = half * kSteps + i;
+        sm90::wgmma<NW, 0, 0>(part, da(0, kk), db(0, kk));
+        if constexpr (!kBf16Math) sm90::wgmma<NW, 0, 0>(part, da(0, kk), db(1, kk));
+        sm90::wgmma<NW, 0, 0>(part, da(1, kk), db(0, kk));
       }
-      for (int e = tid; e < TK * TC; e += THREADS) {
-        const int co = e % TK;
-        const int c = e / TK;
-        s_w[co][c] = (c0 + c < C && co0 + co < Co)
-                         ? rnd<kBf16Math>(
-                               weight[(static_cast<long long>(k) * C + c0 + c) * Co + co0 + co])
-                         : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int kk = 0; kk < TK; ++kk) {
-        float a[4], w[4];
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_acc<NW / 2>(part);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = s_g[kk][tp + 16 * i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) w[j] = s_w[kk][tc + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-      }
-      __syncthreads();
+      for (int i = 0; i < NW / 2; ++i) acc[i] += part[i];
+      // every product warpgroup is done with W's one buffer: the next
+      // stage's chunk flies while they sample
+      asm volatile("bar.sync 1, %0;\n" ::"r"(kProd * 128) : "memory");
+      if (tid == 0 && s + 1 < n_stages) copy_w(s + 1);
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s_u[tp + 16 * i][tc + 16 * j] = acc[i][j];
-    __syncthreads();
+  }
+  if (wg >= kProd) return;  // sampling-only warpgroups (BN = 64) hold no sums
 
-    // col2im: channel fastest across threads, so a warp's atomics on one
-    // corner hit one contiguous run of dx
-    for (int e = tid; e < TP * TC; e += THREADS) {
-      const int c = e % TC;
-      const int p = e / TC;
-      if (c0 + c >= C) continue;
-      const float u = s_u[p][c];
+  // accumulator fragment of m64n64: register 4n + 2h + e holds row
+  // 16 warp + lane/4 + 8h of the warpgroup's 64 (tile row 4 (wg % 2) + warp,
+  // column lane/4 + 8h), column 8n + 2 (lane%4) + e of its 64 channels
+  const int oy = y0 + 4 * (wg & 1) + warp;
+  if (oy >= H) return;
+  const bool pair = (C % 2 == 0);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float wt = s_wt[p][j];
-        if (wt != 0.f) atomicAdd(dx + s_idx[p][j] + c0 + c, wt * u);
+  for (int h = 0; h < 2; ++h) {
+    const int ox = x0 + (lane >> 2) + 8 * h;
+    if (ox >= W) continue;
+    float* out = dx + (static_cast<long long>(b * H + oy) * W + ox) * C;
+#pragma unroll
+    for (int n = 0; n < NW / 8; ++n) {
+      const int c = ct * BN + (wg >> 1) * NW + 8 * n + 2 * (lane & 3);
+      if (c >= C) continue;
+      const float v0 = acc[4 * n + 2 * h];
+      const float v1 = acc[4 * n + 2 * h + 1];
+      if (pair && c + 1 < C) {
+        *reinterpret_cast<float2*>(out + c) = make_float2(v0, v1);
+      } else {
+        out[c] = v0;
+        if (c + 1 < C) out[c + 1] = v1;
       }
     }
   }
 }
 
+// W (9, C, Co) f32 -> w_img (9, n_cc, n_ct, 2, bn, 64) bf16: per (tap, Co
+// chunk, bn-channel tile of C) the hi then lo tiles of W_k^T's block, rows of
+// input channels with 64 output-gradient channels each, zero-padded and
+// swizzled (ops/dcn_cuda.py::dx_weight_image is its plain version).  One
+// thread per 16-byte group.
+__global__ void dx_weight_image_kernel(const float* __restrict__ w,
+                                       __nv_bfloat16* __restrict__ img, int C, int Co, int bn,
+                                       int bf16_math) {
+  const int n_cc = (Co + BK - 1) / BK;
+  const int n_ct = (C + bn - 1) / bn;
+  const int total = 9 * n_cc * n_ct * bn * 8;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= total) return;
+  const int grp = t & 7;
+  const int r = (t >> 3) % bn;
+  const int tile = (t >> 3) / bn;  // (k, cc, ct)
+  const int ct = tile % n_ct;
+  const int cc = (tile / n_ct) % n_cc;
+  const int k = tile / (n_ct * n_cc);
+  const int c = ct * bn + r;
+  const int co = cc * BK + 8 * grp;
+  float v[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    v[e] = (c < C && co + e < Co) ? w[(static_cast<long long>(k) * C + c) * Co + co + e] : 0.f;
+  uint4 hi, lo;
+  sm90::split8<true>(v, hi, lo);
+  if (bf16_math) lo = make_uint4(0u, 0u, 0u, 0u);
+  uint8_t* base = reinterpret_cast<uint8_t*>(img) +
+                  static_cast<long long>(tile) * PARTS * bn * kRowBytes;
+  *reinterpret_cast<uint4*>(base + sm90::swz(r, grp)) = hi;
+  *reinterpret_cast<uint4*>(base + bn * kRowBytes + sm90::swz(r, grp)) = lo;
+}
+
+template <bool kBf16Math, int HC, int BN>
+int launch(const float* off, const float* m, const __nv_bfloat16* w_img, const float* g,
+           float* dx, int B, int H, int W, int C, int Co, float R, int reach, cudaStream_t s) {
+  auto kernel = dcn_bwd_dx_kernel<kBf16Math, HC, BN>;
+  const Layout L(reach, HC, BN);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         L.bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(B * ((H + TH - 1) / TH) * ((W + TW - 1) / TW), (C + BN - 1) / BN);
+  kernel<<<grid, THREADS, L.bytes, s>>>(off, m, w_img, g, dx, H, W, C, Co, R, reach);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// g's halo channels a block stages at once at clamp reach R': 64 where the
+// block's shared memory allows at either tile of C, else 32; 0 where neither
+// fits or the candidates outgrow their table (R' > 4, ops/dcn_cuda.py::
+// DX_MAX_REACH)
+int halo_channels(int reach) {
+  if (reach < 0 || (2 * reach + 1) * (2 * reach + 1) > kMaxCand) return 0;
+  for (int hc = 64; hc >= 32; hc /= 2) {
+    const Layout L(reach, hc, 128);
+    // the shared memory, and the raw offsets and masks in the A stages
+    if (L.bytes <= kSmemLimit && L.nh * 27 * 4 <= L.w) return hc;
+  }
+  return 0;
+}
+
+template <bool kBf16Math>
+int dispatch(int hc, int bn, const float* off, const float* m, const __nv_bfloat16* w_img,
+             const float* g, float* dx, int B, int H, int W, int C, int Co, float R, int reach,
+             cudaStream_t s) {
+  auto run = [&](auto kernel_launch) {
+    return kernel_launch(off, m, w_img, g, dx, B, H, W, C, Co, R, reach, s);
+  };
+  if (hc == 64) return bn == 64 ? run(launch<kBf16Math, 64, 64>) : run(launch<kBf16Math, 64, 128>);
+  return bn == 64 ? run(launch<kBf16Math, 32, 64>) : run(launch<kBf16Math, 32, 128>);
+}
+
 }  // namespace
 
-// Launches on `stream` and returns cudaGetLastError() (0 on success).  The
-// caller checks shapes, dtypes, devices and contiguity, that every index fits
-// in 32 bits, and zeroes dx.
+// Lays out W (9, C, Co) f32 into w_img (scratch of 9 * ceil(Co/64) *
+// ceil(C/bn) * parts * bn * 64 bf16, ops/dcn_cuda.py::dx_image_numel, where
+// parts must be this build's PARTS), then launches dx, both on `stream`;
+// returns the CUDA error (0 on success).  The caller checks shapes, dtypes,
+// devices and contiguity, that every index fits in 32 bits and that the
+// reach ceil(max_offset) fits (R' <= 4; else this returns
+// cudaErrorInvalidValue before it launches anything), and picks the
+// block's input channels bn (64 or 128, ops/dcn_cuda.py::dx_tile_c).
 extern "C" int dcn_bwd_dx(int bf16_math, const void* offset, const void* mask,
-                          const void* weight, const void* g, void* dx, int B, int H, int W,
-                          int C, int Co, float max_offset, void* stream) {
-  const int npix = B * H * W;
-  const dim3 grid((npix + TP - 1) / TP, (C + TC - 1) / TC);
+                          const void* weight, void* w_img, int parts, int bn, const void* g,
+                          void* dx, int B, int H, int W, int C, int Co, float max_offset,
+                          int reach, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* off = static_cast<const float*>(offset);
   const float* m = static_cast<const float*>(mask);
-  const float* w = static_cast<const float*>(weight);
+  auto* wi = static_cast<__nv_bfloat16*>(w_img);
   const float* gg = static_cast<const float*>(g);
   float* d = static_cast<float*>(dx);
+  const int hc = halo_channels(reach);
+  if (hc == 0 || parts != PARTS || (bn != 64 && bn != 128))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int groups = 9 * ((Co + BK - 1) / BK) * ((C + bn - 1) / bn) * bn * 8;
+  dx_weight_image_kernel<<<(groups + 255) / 256, 256, 0, s>>>(static_cast<const float*>(weight),
+                                                              wi, C, Co, bn, bf16_math);
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
   if (bf16_math)
-    dcn_bwd_dx_kernel<true><<<grid, THREADS, 0, s>>>(off, m, w, gg, d, B, H, W, C, Co, max_offset);
-  else
-    dcn_bwd_dx_kernel<false><<<grid, THREADS, 0, s>>>(off, m, w, gg, d, B, H, W, C, Co,
-                                                      max_offset);
-  return static_cast<int>(cudaGetLastError());
+    return dispatch<true>(hc, bn, off, m, wi, gg, d, B, H, W, C, Co, max_offset, reach, s);
+  return dispatch<false>(hc, bn, off, m, wi, gg, d, B, H, W, C, Co, max_offset, reach, s);
 }

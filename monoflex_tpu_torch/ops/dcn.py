@@ -27,6 +27,7 @@ Two bf16 modes, as the TPU kernels have them:
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -204,3 +205,69 @@ def modulated_deform_conv_backward(x: torch.Tensor, offset: torch.Tensor, mask: 
     got = dict(zip(wrt, grads))
     return (got.get("x"), got.get("offset"), got.get("mask"), got.get("weight"),
             g.sum(dim=(0, 1, 2)))
+
+
+def _shifted(t: torch.Tensor, sy: int, sx: int) -> torch.Tensor:
+    """t (B,H,W,C) moved by (sy, sx) along H and W: out[:, y, x] = t[:, y - sy,
+    x - sx], zero where that lies off the map."""
+    _, H, W, _ = t.shape
+    out = torch.zeros_like(t)
+    if abs(sy) < H and abs(sx) < W:
+        out[:, max(sy, 0):H + min(sy, 0), max(sx, 0):W + min(sx, 0)] = \
+            t[:, max(-sy, 0):H - max(sy, 0), max(-sx, 0):W - max(sx, 0)]
+    return out
+
+
+def modulated_deform_conv_dx_mirrored(offset: torch.Tensor, mask: torch.Tensor,
+                                      weight: torch.Tensor, g: torch.Tensor, *,
+                                      max_offset: int,
+                                      compute_dtype: torch.dtype = torch.float32
+                                      ) -> torch.Tensor:
+    """dx of ``modulated_deform_conv`` for the output gradient g (B,H,W,Co), by
+    the algorithm of ``csrc/dcn_bwd_dx.cu`` (and of the TPU's dx5): per tap
+    k, the mirrored gather
+
+        z_k[q] = sum_{e,f in [-R',R']} wt_k(p -> q) g(p),  p = q - (ky + e, kx + f),
+
+    with wt_k(p -> q) the bilinear weight times the mask of the corner of p's
+    tap-k sample that lands on q (0 where none does; R' = ceil(R)), summed in
+    (e, f) order, then dx = sum_k z_k W_k^T.  The corner weights are formed at
+    the source as the forward forms them.  Under ``compute_dtype=bfloat16`` g,
+    W and each corner weight are rounded to bf16 and the sums are float32.
+    The same function as ``modulated_deform_conv_backward(..., wrt=("x",))``,
+    reassociated; the tests hold the two together.  Not on any model path."""
+    bf16_math = check_compute_dtype(compute_dtype)
+    B, H, W, Co = g.shape
+    C = weight.shape[2]
+    R = float(max_offset)
+    reach = math.ceil(R)
+    dev = g.device
+    if bf16_math:
+        g, weight = g.to(torch.bfloat16).float(), weight.to(torch.bfloat16).float()
+    k = torch.arange(9, device=dev)
+    # the tap's integer point, and the floor and fractional part of the sample
+    # point, at each source pixel, as the forward computes them
+    ty = torch.arange(H, device=dev, dtype=torch.float32).view(1, H, 1, 1) + (k // 3 - 1).float()
+    tx = torch.arange(W, device=dev, dtype=torch.float32).view(1, 1, W, 1) + (k % 3 - 1).float()
+    py = ty + offset[..., 0::2].clamp(-R, R)                         # (B,H,W,9)
+    px = tx + offset[..., 1::2].clamp(-R, R)
+    ly, lx = py - torch.floor(py), px - torch.floor(px)
+    dy0, dx0 = torch.floor(py) - ty, torch.floor(px) - tx            # in [-R', R']
+    dx = torch.zeros(B, H, W, C, device=dev, dtype=torch.float32)
+    for tap in range(9):
+        ky, kx = tap // 3 - 1, tap % 3 - 1
+        z = torch.zeros(B, H, W, Co, device=dev, dtype=torch.float32)
+        for e in range(-reach, reach + 1):
+            dy = e - dy0[..., tap]
+            wy = torch.where(dy == 1, ly[..., tap], 1.0 - ly[..., tap])
+            for f in range(-reach, reach + 1):
+                dxc = f - dx0[..., tap]
+                wx = torch.where(dxc == 1, lx[..., tap], 1.0 - lx[..., tap])
+                wt = wy * wx * mask[..., tap]
+                if bf16_math:
+                    wt = wt.to(torch.bfloat16).float()
+                hit = ((dy == 0) | (dy == 1)) & ((dxc == 0) | (dxc == 1))
+                wt = torch.where(hit, wt, torch.zeros_like(wt))
+                z = z + _shifted(wt[..., None] * g, ky + e, kx + f)
+        dx = dx + z @ weight[ky + 1, kx + 1].T
+    return dx

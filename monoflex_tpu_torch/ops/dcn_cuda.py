@@ -29,15 +29,19 @@ from one to the other.  ``<wrapper>.launches`` counts a wrapper's kernel
 launches with float32 math, ``<wrapper>.bf16_math_launches`` those with
 bf16 window math.
 
-``dcn_fwd.cu`` and ``dcn_bwd_dwmo.cu`` run their products on Hopper's tensor
-cores (wgmma, ``csrc/sm90_mma.cuh``) on operands split into bf16 parts
-(``split_bf16``): dcn_fwd in three parts and six passes, the f32 class of
-the plain op; dcn_bwd_dwmo in two parts and three passes; each
-first launches a small kernel that splits W and lays it out for wgmma
-(plain versions: ``fwd_weight_image``, ``dwmo_weight_image``).  Under ``torch.no_grad()`` the forward takes f32 x
-and rounds it to the bf16 transfer dtype inside the kernel, bit-equal to
-casting it first; under autograd ``DCNFunction`` casts, because it saves the
-bf16 x for the backward.
+All three run their products on Hopper's tensor cores (wgmma,
+``csrc/sm90_mma.cuh``) on operands split into bf16 parts (``split_bf16``):
+dcn_fwd in three parts and six passes, the f32 class of the plain op;
+dcn_bwd_dwmo and dcn_bwd_dx in two parts and three passes; each first
+launches a small kernel that splits W and lays it out for wgmma (plain
+versions: ``fwd_weight_image``, ``dwmo_weight_image``, ``dx_weight_image``).
+dcn_bwd_dx is a mirrored gather over a shared-memory halo of g (plain
+version of its algorithm: ``ops/dcn.py::modulated_deform_conv_dx_mirrored``);
+none of the three uses atomics, so two launches are bit-equal.  Under
+``torch.no_grad()`` the forward takes f32 x and rounds it to the bf16
+transfer dtype inside the kernel, bit-equal to casting it first; under
+autograd ``DCNFunction`` casts, because it saves the bf16 x for the
+backward.
 
 Every source is compiled by nvcc for sm_90a on first use, one nvcc per source
 started together, into ``_build/<hash>/`` next to the package, where the hash
@@ -82,12 +86,20 @@ _CHUNK = 64
 # its entry checks)
 FWD_PARTS = 3
 _MAX_MO_CO = 256
+# bf16 parts of z and W in dcn_bwd_dx (csrc/dcn_bwd_dx.cu's PARTS, which its
+# entry checks)
+DX_PARTS = 2
+# the largest clamp reach ceil(R) whose halo of g, floors and stages fit a
+# dcn_bwd_dx block's shared memory (csrc/dcn_bwd_dx.cu's halo_channels,
+# which its entry checks)
+DX_MAX_REACH = 4
 
 _vp, _i32, _f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     "dcn_fwd": [_vp, _i32, _i32, _i32, _vp, _vp, _vp, _vp, _i32, _i32, _vp, _vp, _vp, _vp,
                 _i32, _i32, _i32, _i32, _i32, _f32, _vp],
-    "dcn_bwd_dx": [_i32, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _f32, _vp],
+    "dcn_bwd_dx": [_i32, _vp, _vp, _vp, _vp, _i32, _i32, _vp, _vp, _i32, _i32, _i32, _i32, _i32,
+                   _f32, _i32, _vp],
     "dcn_bwd_dwmo": [_vp, _i32, _i32, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i32,
                      _i32, _i32, _i32, _i32, _i32, _i32, _f32, _vp],
     "dcn_ablate": [_i32, _vp, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32, _i32,
@@ -248,6 +260,18 @@ def dwmo_image_numel(C: int, Co: int) -> int:
     return 9 * math.ceil(C / _CHUNK) * 2 * math.ceil(Co / _CHUNK) * _CHUNK * _CHUNK
 
 
+def dx_tile_c(C: int) -> int:
+    """dcn_bwd_dx's input channels per block: 128 (four warpgroups multiply)
+    where C exceeds 64, so the gather of z is shared by twice the channels;
+    else 64."""
+    return 128 if C > _CHUNK else _CHUNK
+
+
+def dx_image_numel(C: int, Co: int) -> int:
+    bn = dx_tile_c(C)
+    return 9 * math.ceil(Co / _CHUNK) * math.ceil(C / bn) * DX_PARTS * bn * _CHUNK
+
+
 def fwd_weight_image(weight: torch.Tensor, bn: int, bf16_math: bool = False) -> torch.Tensor:
     """W (3,3,C,Co) as dcn_fwd's B operand: (9, ceil(C/64), Co_pad/bn, 3, bn,
     64) bf16, each (tap, channel chunk, output-channel tile) one bulk copy of
@@ -272,6 +296,21 @@ def dwmo_weight_image(weight: torch.Tensor, bf16_math: bool = False) -> torch.Te
     w = _pad(weight.reshape(9, C, Co), {1: ct * _CHUNK, 2: kc * _CHUNK})
     w = w.view(9, ct, _CHUNK, kc, _CHUNK).permute(0, 1, 3, 2, 4)     # (9, ct, kc, 64, 64)
     return swizzle_128b(_parts(w, 2, bf16_math).permute(1, 2, 0, 3, 4, 5)).contiguous()
+
+
+def dx_weight_image(weight: torch.Tensor, bf16_math: bool = False) -> torch.Tensor:
+    """W (3,3,C,Co) as dcn_bwd_dx's B operand, W_k^T: (9, ceil(Co/64),
+    ceil(C/bn), 2, bn, 64) bf16 with bn = ``dx_tile_c(C)``, each (tap, Co
+    chunk, C tile) one bulk copy of its hi then lo tiles, rows of input
+    channels with 64 output-gradient channels each, zero-padded and
+    swizzled.  The plain version of the layout kernel that
+    ``csrc/dcn_bwd_dx.cu`` launches first."""
+    _, _, C, Co = weight.shape
+    bn = dx_tile_c(C)
+    ct, cc = math.ceil(C / bn), math.ceil(Co / _CHUNK)
+    w = _pad(weight.reshape(9, C, Co), {1: ct * bn, 2: cc * _CHUNK})
+    w = w.view(9, ct, bn, cc, _CHUNK).permute(0, 3, 1, 2, 4)         # (9, cc, ct, bn, 64)
+    return swizzle_128b(_parts(w, DX_PARTS, bf16_math).permute(1, 2, 3, 0, 4, 5)).contiguous()
 
 
 def _fwd_kernel(xt: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
@@ -317,6 +356,11 @@ def dcn_bwd_dx(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
 
     x is the forward's input as its kernel read it (float32, or bfloat16
     under bf16 transfer); only its shape is used: dx does not depend on x.
+    On a CUDA tensor the kernel gathers, for each output pixel, the corners
+    that land on it from a halo of g in shared memory and contracts W_k^T on
+    the tensor cores; every sum runs in a fixed order, so two launches are
+    bit-equal.  It raises ValueError for an R whose halo does not fit a
+    block's shared memory (R > DX_MAX_REACH = 4).
     ``dcn_bwd_dx.launches`` (``.bf16_math_launches`` under
     ``compute_dtype=bfloat16``) counts kernel launches.
     """
@@ -331,9 +375,17 @@ def dcn_bwd_dx(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     Co = weight.shape[3]
     _check_kernel_operands("dcn_bwd_dx", B, H, W, C, Co, offset=offset, mask=mask,
                            weight=weight, g=g)
-    dx = torch.zeros((B, H, W, C), device=x.device, dtype=torch.float32)
+    reach = math.ceil(max_offset)
+    if reach > DX_MAX_REACH:
+        raise ValueError(f"dcn_bwd_dx: max_offset R = {max_offset} does not fit the kernel: a "
+                         f"block's halo of g, its floors and stages outgrow its shared memory "
+                         f"(R <= {DX_MAX_REACH} fits)")
+    # every element of dx is written once: no zeroing
+    dx = torch.empty((B, H, W, C), device=x.device, dtype=torch.float32)
+    w_img = torch.empty(dx_image_numel(C, Co), device=x.device, dtype=torch.bfloat16)
     _launch("dcn_bwd_dx", x, int(bf16_math), offset.data_ptr(), mask.data_ptr(),
-            weight.data_ptr(), g.data_ptr(), dx.data_ptr(), B, H, W, C, Co, float(max_offset))
+            weight.data_ptr(), w_img.data_ptr(), DX_PARTS, dx_tile_c(C), g.data_ptr(),
+            dx.data_ptr(), B, H, W, C, Co, float(max_offset), reach)
     _count(dcn_bwd_dx, bf16_math)
     return dx
 
@@ -402,7 +454,8 @@ def dcn_backward(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
                  compute_dtype: torch.dtype = torch.float32):
     """(dx, doffset, dmask, dweight, dbias) of the DCN for the output gradient
     g: ``dcn_bwd_dx``, ``dcn_bwd_dwmo`` and the sum of g, the counterpart of
-    ``monoflex_tpu/ops/dcn_pallas_bwd.py::dcn_pallas_bwd``."""
+    ``monoflex_tpu/ops/dcn_pallas_bwd.py::dcn_pallas_bwd``.  Both kernels sum
+    in a fixed order (no atomics): two launches are bit-equal."""
     dx = dcn_bwd_dx(x, offset, mask, weight, g, max_offset=max_offset,
                     compute_dtype=compute_dtype)
     dmask, dweight, doffset = dcn_bwd_dwmo(x, offset, mask, weight, g, max_offset=max_offset,

@@ -46,17 +46,15 @@ def test_fails_alone(tmp_path):
 @pytest.mark.parametrize("kind", ["fwd", "dx", "dwmo"])
 def test_bf16_math_bound_counts_products_on_tensor_cores(kind):
     """The bf16 window math's products are bf16 x bf16 summed in f32: its
-    bound counts them at the tensor cores' rate, the sampling at f32."""
+    bound counts them at the tensor cores' rate (one pass), the sampling at
+    f32; the f32 math takes the kernels' split-bf16 passes."""
     smoke = load_smoke()
     H, W, C, Co = 96, 320, 64, 64
     ops, nbytes, tc = smoke.dcn_work(kind, H, W, C, Co, 4)
     s_ops, s_bytes, s_tc = smoke.dcn_work(kind, H, W, C, Co, 4, bf16_math=True)
     products = (2 if kind == "dwmo" else 1) * 2 * 9 * smoke.BATCH * H * W * C * Co
-    if kind == "dx":     # f32 math off the tensor cores
-        assert (tc, s_bytes, s_tc, s_ops) == (0, nbytes, products, ops - products)
-    else:                # f32 math as split-bf16 passes, bf16 math as one
-        assert (tc, s_bytes, s_tc, s_ops) == (smoke.TC_PASSES[kind] * products, nbytes,
-                                              products, ops)
+    assert (tc, s_bytes, s_tc, s_ops) == (smoke.TC_PASSES[kind] * products, nbytes,
+                                          products, ops)
     t_ops = max(s_ops / smoke.F32_PEAK_FLOPS, s_tc / smoke.BF16_TC_PEAK_FLOPS)
     bound, by = smoke.bound_of(s_ops, s_bytes, s_tc)
     assert bound == pytest.approx(max(t_ops, s_bytes / smoke.HBM_BYTES_PER_S) * 1e3)
@@ -77,14 +75,13 @@ def neck_bound(smoke, kind, bf16_math=False):
 @pytest.mark.parametrize("kind,want_ms,by", [("fwd", 1.29, "operations"),
                                              ("fwd_bn_relu", 1.29, "operations"),
                                              ("dwmo", 1.29, "operations"),
-                                             ("dx", 3.33, "operations")])
+                                             ("dx", 0.646, "operations")])
 def test_neck_bounds_count_tensor_core_passes(kind, want_ms, by):
     """dcn_fwd and its epilogue form take their f32-class product as 6
     passes of 3-part split-bf16 operands on the tensor cores (989 TFLOP/s),
     dcn_bwd_dwmo its two products as 3 passes of 2-part operands: 1.29 ms
-    each over the neck's 16 layers at batch 8 (3 passes of the forward's
-    one product would be 0.646 ms); dcn_bwd_dx, still f32 FMAs, keeps its
-    f32 bound of 3.33 ms."""
+    each over the neck's 16 layers at batch 8; dcn_bwd_dx its one product
+    as 3 passes: 0.646 ms (3.33 ms while it ran f32 FMAs)."""
     smoke = load_smoke()
     bound, got_by = neck_bound(smoke, kind)
     assert round(bound, 3 if bound < 1 else 2) == want_ms and got_by == by

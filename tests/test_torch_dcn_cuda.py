@@ -7,11 +7,11 @@ Needs a CUDA device and nvcc; skipped without a device.  On the GPU
 
 Tolerances.  1e-4 abs on the forward's O(1) outputs and on dx, dmask and
 doffset (O(1) to O(10) sums over at most 9*C*16 terms): both sides take the
-same (optionally bf16-rounded) x and accumulate in float32; only the
-summation order differs (and dx's atomics make its order vary from run to
-run).  dW sums over every pixel of the batch (up to 61,440 here), so it is
-held to 1e-5 of its largest element.  TF32 is off for the plain op's matmul
-and for cuDNN.
+same (optionally bf16-rounded) x and accumulate in float32 (the kernels'
+products as split-bf16 passes of about 2^-16 or better); the summation
+order differs.  dW sums over every pixel of the batch (up to 61,440 here),
+so it is held to 1e-5 of its largest element.  TF32 is off for the plain
+op's matmul and for cuDNN.
 """
 
 import pytest
@@ -109,9 +109,10 @@ def grad_errors(got, ref):
     return errs, dw_rel
 
 
+# R = 4: the largest clamp dcn_bwd_dx's halo takes (32 channels at a time)
 @pytest.mark.parametrize("shape", [(1, 16, 32, 8, 8), (2, 13, 20, 24, 16), (2, 9, 7, 40, 72),
                                    (8, 48, 160, 128, 64)])
-@pytest.mark.parametrize("R", [1, 2])
+@pytest.mark.parametrize("R", [1, 2, 4])
 @pytest.mark.parametrize("transfer", [torch.float32, torch.bfloat16])
 def test_backward_kernels_match_plain_backward(device, shape, R, transfer):
     x, off, mask, w, _ = make_inputs(device, *shape, bias=False)
@@ -172,6 +173,50 @@ def test_dwmo_is_deterministic(device, shape, transfer):
     second = dcn_cuda.dcn_bwd_dwmo(xt, off, mask, w, g, max_offset=2)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("shape", [(2, 13, 20, 24, 16), (2, 9, 7, 40, 72), (8, 48, 160, 128, 64),
+                                   (2, 12, 40, 512, 256)])
+@pytest.mark.parametrize("transfer", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
+def test_dx_is_deterministic(device, shape, transfer, compute_dtype):
+    """dx is a mirrored gather whose sums run in a fixed order (no atomics):
+    two launches on the same inputs are bit-equal, in f32 and in bf16 math."""
+    x, off, mask, w, _ = make_inputs(device, *shape, bias=False)
+    g = torch.randn(*shape[:3], shape[4], device=device,
+                    generator=torch.Generator(device=device).manual_seed(2))
+    xt = x.to(transfer)
+    first = dcn_cuda.dcn_bwd_dx(xt, off, mask, w, g, max_offset=2, compute_dtype=compute_dtype)
+    second = dcn_cuda.dcn_bwd_dx(xt, off, mask, w, g, max_offset=2, compute_dtype=compute_dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+# C off the kernel's 128-channel tile (72, 136) and maps smaller than its
+# 8 x 16 pixel tile, at every R its halo takes
+@pytest.mark.parametrize("shape", [(2, 9, 7, 72, 40), (1, 5, 3, 136, 8)])
+@pytest.mark.parametrize("R", [1, 2, 3, 4])
+def test_dx_ragged_channel_tiles(device, shape, R):
+    x, off, mask, w, _ = make_inputs(device, *shape, seed=7, bias=False)
+    g = torch.randn(*shape[:3], shape[4], device=device,
+                    generator=torch.Generator(device=device).manual_seed(8))
+    dx = dcn_cuda.dcn_bwd_dx(x, off, mask, w, g, max_offset=R)
+    torch.cuda.synchronize()
+    ref = modulated_deform_conv_backward(x, off, mask, w, g, max_offset=R, wrt=("x",))[0]
+    assert (dx - ref).abs().max().item() <= ATOL
+
+
+@pytest.mark.parametrize("R", [5, 8])
+def test_dx_rejects_a_halo_that_does_not_fit(device, R):
+    """An R whose halo of g does not fit a block's shared memory (R > 4)
+    raises, naming R, and launches nothing: there is no fallback to the
+    plain op."""
+    x, off, mask, w, _ = make_inputs(device, 1, 16, 32, 8, 8, bias=False)
+    g = torch.randn(1, 16, 32, 8, device=device)
+    before = dcn_cuda.dcn_bwd_dx.launches
+    with pytest.raises(ValueError, match=f"R = {R}"):
+        dcn_cuda.dcn_bwd_dx(x, off, mask, w, g, max_offset=R)
+    assert dcn_cuda.dcn_bwd_dx.launches == before
 
 
 @pytest.mark.parametrize("shape", [(1, 16, 32, 8, 8), (2, 9, 7, 40, 72), (8, 48, 160, 128, 64)])
