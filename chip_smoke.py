@@ -20,13 +20,17 @@ Phases, one line each; any failure exits non-zero and prints no result:
   5. bwd     the two backward kernels (dx; dmask, dW and doffset) against
              the plain backward at the neck's shapes, batch 8, R=2, x in
              bf16: max errors against the tolerances, each kernel's two
-             launches bit-equal, ms per call of each.
+             launches bit-equal, ms per call of each; then dx at R=8, the
+             first stage's clamp under TPU.DCN_MAX_OFFSET_PER_STAGE = (8, 4,
+             2, 2), at that stage's two shapes, the same way.
   6. train   the training step on the same model and batch size: one
              warm-up step, then 3 steps that must launch each of the three
              kernels 16 times per step, give 11 finite loss terms and no
              skipped step, and move the trunk's first conv, a DCN weight and
              an offset/mask conv; then, from one saved state, the loss and
-             every gradient of a kernel step against a plain-op step.
+             every gradient of a kernel step against a plain-op step, and
+             again under the per-stage clamp (8, 4, 2, 2), whose kernel step
+             must launch each kernel 16 times.
   7. eval    the fused BN+ReLU epilogue kernel against its plain version at
              the neck's shapes (and the unfused kernel + BN + ReLU, timed);
              then the evaluation path on a seeded 16-frame KITTI-format tree
@@ -41,7 +45,10 @@ Phases, one line each; any failure exits non-zero and prints no result:
   8. diag    the kernel-diagnostics path: each dcn_ablate variant against
              its plain version at kernel_diag's default shapes (0 and 4 of
              MODEL_SHAPES), with dcn_fwd timed beside them (the split of its
-             time); the relayout kernel against its plain version and
+             time) and x.clone() and F.conv2d (nomap as one convolution)
+             beside dma and nomap, all timed in CUDA graphs over input
+             copies of twice the L2 (none may read below its bound); the relayout
+             kernel against its plain version and
              F.pad(x.permute(...)) at transpose_ablate's default shape; the
              bf16 window math of dcn_fwd, dcn_bwd_dx and dcn_bwd_dwmo against
              the plain op at the neck's shapes (dx twice bit-equal); then
@@ -95,6 +102,7 @@ from monoflex_tpu_torch.ops.dcn_ablate import VARIANTS as ABLATE_VARIANTS
 from monoflex_tpu_torch.ops.dcn_ablate import dcn_ablate, dcn_ablate_reference
 from monoflex_tpu_torch.ops.relayout import relayout, relayout_dims, relayout_reference
 from monoflex_tpu_torch.tools import LAUNCH_LOG_ENV
+from monoflex_tpu_torch.tools.ablate_time import diag_inputs, graph_ms, nomap_conv_weight, rotating
 from monoflex_tpu_torch.tools.kernel_bench import MODEL_SHAPES
 from monoflex_tpu_torch.tools.step_drift import perturb_offset_convs, step_drift
 from monoflex_tpu_torch.train.solver import build_optimizer
@@ -118,6 +126,10 @@ DCN_SHAPES = [
     ((48, 160, 64, 64), 0),
     ((24, 80, 64, 64), 0),
 ]
+# the documented per-stage clamp TPU.DCN_MAX_OFFSET_PER_STAGE (monoflex_tpu/
+# config/defaults.py): its first stage, ida_0, runs at R = 8 at these shapes
+CLAMP_PER_STAGE = (8, 4, 2, 2)
+CLAMP_SHAPES = [(24, 80, 256, 256), (12, 40, 512, 256)]
 # kernel vs plain op on the same bf16-rounded x: both accumulate in f32 and
 # differ only in summation order over 9*C <= 4608 terms of an O(1) output
 KERNEL_TOL = 1e-3
@@ -201,11 +213,13 @@ BF16_TC_PEAK_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 # bf16 tensor-core passes of an f32-class product of split operands
 # (csrc/sm90_mma.cuh): dcn_fwd splits each operand in three parts and takes
-# six products (the f32 class), dcn_bwd_dwmo and dcn_bwd_dx in two and take
+# six products (the f32 class), and so do the ablations with its products
+# (matmul, nomap, nobcast); dcn_bwd_dwmo and dcn_bwd_dx split in two and take
 # three.  Under bf16 window math the function's operands are bf16 and one
 # pass computes it; the bound counts that one pass for every kernel, though
 # dcn_bwd_dx spends a second on the lo part of its reassociated z
-TC_PASSES = {"fwd": 6, "fwd_bn_relu": 6, "dwmo": 3, "dx": 3}
+TC_PASSES = {"fwd": 6, "fwd_bn_relu": 6, "dwmo": 3, "dx": 3, "matmul": 6, "nomap": 6,
+             "nobcast": 6}
 
 
 def phase(name: str, msg: str) -> None:
@@ -240,10 +254,11 @@ def dcn_work(kind: str, H: int, W: int, C: int, Co: int, x_bytes: int, bf16_math
     ``bf16_math``, whose operands are bf16 already.  The
     sampling stays f32.  The ablations (ops/dcn_ablate.py) at R: dma moves
     x; window takes the 4 corners and the tap sum (9 per sampled element),
-    aligned 2 row corners (5); matmul the contraction and the mask (1);
-    nomap the contraction of one box-summed map, whose (2R+1)^2 box is
-    separable (2R adds along the row, 2R along the column, once per (pixel,
-    channel)); nobcast the contraction and, since its hat weights are
+    aligned 2 row corners (5); matmul, nomap and nobcast take the
+    contraction on the tensor cores as dcn_fwd (TC_PASSES), and in f32:
+    matmul the mask (1 per sampled element); nomap one box-summed map,
+    whose (2R+1)^2 box is separable (2R adds along the row, 2R along the
+    column, once per (pixel, channel)); nobcast, since its hat weights are
     constant over a row tile, a row pass and a column pass of 2R+1
     multiply-adds per (pixel, tap, channel), with 11 (2R+1) per (pixel, tap)
     for the hat maps, the mask and the tile maximum."""
@@ -276,12 +291,12 @@ def dcn_work(kind: str, H: int, W: int, C: int, Co: int, x_bytes: int, bf16_math
     if kind in ("window", "aligned"):
         return (9 if kind == "window" else 5) * taps, x_in + offset + n * C * f32, 0
     if kind == "matmul":
-        return gemm + taps, x_in + mask + weight + n * Co * f32, 0
+        return taps, x_in + mask + weight + n * Co * f32, passes * gemm
     if kind == "nomap":
-        return gemm + 4 * R * n * C, x_in + weight + n * Co * f32, 0
+        return 4 * R * n * C, x_in + weight + n * Co * f32, passes * gemm
     if kind == "nobcast":
-        return (gemm + 4 * (2 * R + 1) * taps + 11 * (2 * R + 1) * 9 * n,
-                x_in + offset + mask + weight + n * Co * f32, 0)
+        return (4 * (2 * R + 1) * taps + 11 * (2 * R + 1) * 9 * n,
+                x_in + offset + mask + weight + n * Co * f32, passes * gemm)
     raise ValueError(kind)
 
 
@@ -541,15 +556,58 @@ def check_backward() -> dict:
                            f"{work[k][0] / 1e9:.1f} f32 GFLOP, {work[k][2] / 1e9:.1f} GFLOP on "
                            f"the tensor cores, {work[k][1] / 1e9:.3f} GB)"
                            for k, v in out.items()))
+    check_backward_clamp()
     return out
 
 
-def compare_steps(state: dict, cfg, batch: dict) -> dict:
+def check_backward_clamp() -> None:
+    """dcn_bwd_dx at R = CLAMP_PER_STAGE[0] at ida_0's shapes, where its
+    layout stages g in 16-channel slices and the floors per tap: against the
+    plain backward within BWD_RTOL, twice bit-equal; ms per layer, kernel and
+    plain backward in turns, beside the same kernel at the neck's R."""
+    r8 = CLAMP_PER_STAGE[0]
+    for i, (H, W, C, Co) in enumerate(CLAMP_SHAPES):
+        g = torch.Generator(device="cuda").manual_seed(700 + i)
+        x = torch.randn(BATCH, H, W, C, device="cuda", generator=g).to(torch.bfloat16)
+        # 6 sigma: sources up to 8 pixels away, and some clipped
+        off = torch.randn(BATCH, H, W, 18, device="cuda", generator=g) * 6
+        mask = torch.rand(BATCH, H, W, 9, device="cuda", generator=g)
+        w = torch.randn(3, 3, C, Co, device="cuda", generator=g) / (9 * C) ** 0.5
+        gy = torch.randn(BATCH, H, W, Co, device="cuda", generator=g)
+
+        def kernel(r=r8):
+            return dcn_cuda.dcn_bwd_dx(x, off, mask, w, gy, max_offset=r)
+
+        def plain():
+            return modulated_deform_conv_backward(x.float(), off, mask, w, gy, max_offset=r8,
+                                                  wrt=("x",))[0]
+
+        dx, ref = kernel(), plain()
+        if not torch.equal(dx, kernel()):
+            raise AssertionError(f"dcn_bwd_dx {(BATCH, H, W, C, Co)} R={r8}: two launches differ")
+        err = (dx - ref).abs().max().item()
+        bound = BWD_RTOL * ref.abs().max().item()
+        if not (err <= bound and torch.isfinite(dx).all()):
+            raise AssertionError(f"dx {(BATCH, H, W, C, Co)} R={r8}: max abs err {err} > {bound} "
+                                 f"({BWD_RTOL} of max |ref|)")
+        del dx, ref
+        p1, k1, n1, n2, k2, p2 = (time_ms(plain, 3), time_ms(kernel, 10),
+                                  time_ms(lambda: kernel(R), 10), time_ms(lambda: kernel(R), 10),
+                                  time_ms(kernel, 10), time_ms(plain, 3))
+        phase("bwd", f"per-stage clamp: dcn_bwd_dx B,H,W,C,Co={(BATCH, H, W, C, Co)} R={r8} "
+                     f"dx_err={err:.3e} (tol {BWD_RTOL} of max |ref|) dx_ms={(k1 + k2) / 2:.4f} "
+                     f"plain_dx_ms={(p1 + p2) / 2:.4f} (the kernel at R={R}: "
+                     f"{(n1 + n2) / 2:.4f}); twice bit-equal")
+        del x, off, mask, w, gy
+        torch.cuda.empty_cache()
+
+
+def compare_steps(state: dict, cfg, batch: dict, label: str = "") -> dict:
     """One kernel step and one plain-op step from the same saved state, x in
     f32 (``tools/step_drift.py::step_drift``): the total loss and every
     parameter's gradient against the tolerances."""
     d = step_drift(state, cfg, batch)
-    phase("train", f"kernel step vs plain-op step: total {d['total_kernel']:.6f} vs "
+    phase("train", f"{label}kernel step vs plain-op step: total {d['total_kernel']:.6f} vs "
                    f"{d['total_plain']:.6f} (rel {d['loss_rel_err']:.3e}, tol {STEP_LOSS_RTOL}); "
                    f"worst gradient rel L2 {d['grad_rel_l2']:.3e} ({d['worst_param']}; tol "
                    f"{STEP_GRAD_REL_L2}) over {d['params']} parameters; biases into train-mode "
@@ -618,6 +676,18 @@ def run_train(card: str) -> dict:
     del model, optimizer, train_step, params, start
     torch.cuda.empty_cache()
     compare_steps(state_dict, cfg, batch)
+    # the documented per-stage clamp: the kernel step takes dcn_bwd_dx at R = 8
+    # in ida_0, with no ValueError and no plain op in its place
+    clamp = cfg.clone()
+    clamp.TPU.DCN_MAX_OFFSET_PER_STAGE = CLAMP_PER_STAGE
+    for f in counters:
+        f.launches = 0
+    compare_steps(state_dict, clamp, batch, label=f"per-stage clamp {CLAMP_PER_STAGE}: ")
+    clamp_launches = {f.__name__: f.launches for f in counters}
+    if any(n != 16 for n in clamp_launches.values()):
+        raise AssertionError(f"per-stage clamp step launches {clamp_launches}, want 16 each")
+    phase("train", "per-stage clamp step launches "
+                   + " ".join(f"{k}={v}" for k, v in clamp_launches.items()))
     return {"launches": launches}
 
 
@@ -825,35 +895,37 @@ def run_eval() -> dict:
     return launches["b"]
 
 
-def diag_inputs(seed: int, H: int, W: int, C: int, Co: int):
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    return (torch.randn(BATCH, H, W, C, device="cuda", generator=g),
-            torch.randn(BATCH, H, W, 18, device="cuda", generator=g) * 1.5,
-            torch.rand(BATCH, H, W, 9, device="cuda", generator=g),
-            torch.randn(3, 3, C, Co, device="cuda", generator=g) / (9 * C) ** 0.5)
-
-
 def check_ablate() -> dict:
     """Each dcn_ablate variant against its plain version at kernel_diag's
     default shapes, batch 8, R=2: max error, ms per call of kernel and plain
-    version in turns (and of x.clone() for dma), summed over the two shapes;
-    dcn_fwd (f32 x, no bias) timed beside them, the split of its time."""
-    out = {v: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "ops": 0, "bytes": 0,
-               "library_ms": 0.0 if v == "dma" else None} for v in ABLATE_VARIANTS}
+    version in turns (and of the one PyTorch call of the same function:
+    x.clone() for dma, F.conv2d with nomap's combined kernel, TF32 off),
+    summed over the two shapes; dcn_fwd (f32 x, no bias) timed beside them,
+    the split of its time.  The kernels, dcn_fwd and the library calls are
+    timed on the device (``graph_ms``: at the small shape an eager launch of
+    dma or x.clone() times the host) over ``rotating`` copies of the inputs
+    (twice the L2), so that each call reads them from device memory; a time
+    below its bound (x.clone() held to dma's) fails the phase."""
+    library = ("dma", "nomap")
+    out = {v: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "work": [0, 0, 0],
+               "library_ms": 0.0 if v in library else None} for v in ABLATE_VARIANTS}
     for i, (H, W, C, Co) in enumerate(DIAG_SHAPES):
         x, off, mask, w = diag_inputs(300 + i, H, W, C, Co)
+        sets = rotating(x, off, mask, w)
         with torch.no_grad():
-            full = sum(time_ms(lambda: dcn_cuda.dcn_forward(x, off, mask, w, None, max_offset=R), 20)
+            full = sum(graph_ms(lambda *a: dcn_cuda.dcn_forward(*a, None, max_offset=R), sets, 20)
                        for _ in range(2)) / 2
+        bounds = {v: bound_of(*dcn_work(v, H, W, C, Co, x.element_size()))[0]
+                  for v in ("fwd", *ABLATE_VARIANTS)}
         split = {}
         for v in ABLATE_VARIANTS:
-            def kernel():
-                return dcn_ablate(x, off, mask, w, variant=v, max_offset=R)
+            def kernel(*a):
+                return dcn_ablate(*a, variant=v, max_offset=R)
 
             def plain():
                 return dcn_ablate_reference(x, off, mask, w, variant=v, max_offset=R)
 
-            y, ref = kernel(), plain()
+            y, ref = kernel(x, off, mask, w), plain()
             err = (y - ref).abs().max().item()
             tol = 0.0 if v == "dma" else ABLATE_RTOL * ref.abs().max().item()
             if not (err <= tol and torch.isfinite(y).all()):
@@ -862,37 +934,56 @@ def check_ablate() -> dict:
             if v == "dma":
                 if not torch.equal(x.clone(), y):
                     raise AssertionError("dcn_ablate[dma] differs from x.clone()")
-                p1, k1, l1, l2, k2, p2 = (time_ms(plain, 3), time_ms(kernel, 20),
-                                          time_ms(x.clone, 20), time_ms(x.clone, 20),
-                                          time_ms(kernel, 20), time_ms(plain, 3))
+
+                def lib(xs, *_):
+                    return xs.clone()
+            elif v == "nomap":
+                K = nomap_conv_weight(w, R)
+
+                def lib(xs, *_):
+                    return F.conv2d(xs.permute(0, 3, 1, 2), K, padding=R + 1)
+
+                lib_err = (lib(x).permute(0, 2, 3, 1) - ref).abs().max().item()
+                if not lib_err <= ABLATE_RTOL * ref.abs().max().item():
+                    raise AssertionError(f"F.conv2d for nomap {(BATCH, H, W, C, Co)}: max abs "
+                                         f"err {lib_err}")
+            if v in library:
+                p1, k1, l1, l2, k2, p2 = (time_ms(plain, 3), graph_ms(kernel, sets, 20),
+                                          graph_ms(lib, sets, 10), graph_ms(lib, sets, 10),
+                                          graph_ms(kernel, sets, 20), time_ms(plain, 3))
                 out[v]["library_ms"] += (l1 + l2) / 2
+                if v == "dma" and min(l1, l2) < bounds["dma"]:
+                    raise AssertionError(f"x.clone() {(BATCH, H, W, C)}: {min(l1, l2):.4f} ms, "
+                                         f"below its bound {bounds['dma']:.4f}")
             else:
-                p1, k1, k2, p2 = (time_ms(plain, 3), time_ms(kernel, 20), time_ms(kernel, 20),
-                                  time_ms(plain, 3))
-            ops, nbytes, _ = dcn_work(v, H, W, C, Co, x.element_size())
+                p1, k1, k2, p2 = (time_ms(plain, 3), graph_ms(kernel, sets, 20),
+                                  graph_ms(kernel, sets, 20), time_ms(plain, 3))
+            if min(k1, k2) < bounds[v]:
+                raise AssertionError(f"dcn_ablate[{v}] {(BATCH, H, W, C, Co)}: {min(k1, k2):.4f} "
+                                     f"ms, below its bound {bounds[v]:.4f}")
             rec = out[v]
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
             rec["ms"] += (k1 + k2) / 2
             rec["plain_ms"] += (p1 + p2) / 2
-            rec["ops"] += ops
-            rec["bytes"] += nbytes
+            rec["work"] = [t + u for t, u in zip(rec["work"],
+                                                 dcn_work(v, H, W, C, Co, x.element_size()))]
             split[v] = (k1 + k2) / 2
             del y, ref
-        bounds = {v: bound_of(*dcn_work(v, H, W, C, Co, x.element_size()))[0]
-                  for v in ("fwd", *split)}
-        phase("diag", f"dcn_fwd split B,H,W,C,Co={(BATCH, H, W, C, Co)} R={R}, ms (share of "
-                      f"dcn_fwd, bound ms): dcn_fwd(f32 x)_ms={full:.4f} (1, {bounds['fwd']:.4f}) "
+        phase("diag", f"dcn_fwd split B,H,W,C,Co={(BATCH, H, W, C, Co)} R={R}, device ms (share of "
+                      f"dcn_fwd, bound ms) over {len(sets)} rotating input sets: dcn_fwd(f32 x)_ms="
+                      f"{full:.4f} (1, {bounds['fwd']:.4f}) "
                       + " ".join(f"{v}_ms={ms:.4f} ({ms / full:.2f}, {bounds[v]:.4f})"
                                  for v, ms in split.items()))
-        del x, off, mask, w
+        del x, off, mask, w, sets
         torch.cuda.empty_cache()
     for v, rec in out.items():
-        rec["bound_ms"], rec["bound_by"] = bound_of(rec.pop("ops"), rec.pop("bytes"))
+        rec["bound_ms"], rec["bound_by"] = bound_of(*rec.pop("work"))
         phase("diag", f"dcn_ablate[{v}] over {len(DIAG_SHAPES)} shapes: max_abs_err="
                       f"{rec['max_abs_err']:.3e} (tol {0 if v == 'dma' else ABLATE_RTOL} of max "
                       f"|ref|) ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} bound_ms="
                       f"{rec['bound_ms']:.4f} ({rec['bound_by']})"
-                      + (f" library_ms(x.clone)={rec['library_ms']:.4f}" if v == "dma" else ""))
+                      + (f" library_ms({'x.clone' if v == 'dma' else 'F.conv2d'})="
+                         f"{rec['library_ms']:.4f}" if v in library else ""))
     return out
 
 
@@ -1163,7 +1254,7 @@ def build_report() -> dict:
     out_dir = dcn_cuda.build_dir()
     report = {}
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    for src in ("dcn_fwd", "dcn_bwd_dwmo", "dcn_bwd_dx"):
+    for src in ("dcn_fwd", "dcn_bwd_dwmo", "dcn_bwd_dx", "dcn_ablate"):
         log = (out_dir / f"{src}.log").read_text()
         kernels = []
         name, spills = None, "spills ?"
@@ -1186,10 +1277,11 @@ def build_report() -> dict:
             fn = short_kernel_name(block.split()[0])
             hgmma[fn] = hgmma.get(fn, 0) + block.count("HGMMA")
         if not any(hgmma.get(k, 0) for k in hgmma if "mo_kernel" in k or "fwd_kernel" in k
-                   or "dw_kernel" in k or "dx_kernel" in k):
+                   or "dw_kernel" in k or "dx_kernel" in k or "gemm_" in k):
             raise AssertionError(f"{src}: no HGMMA in its SASS")
-        # every instantiation of the dx kernel runs its product on wgmma
-        bare = [k for k, v in hgmma.items() if "dx_kernel" in k and not v]
+        # every instantiation of the dx kernel and of the ablations' products
+        # runs its product on wgmma
+        bare = [k for k, v in hgmma.items() if ("dx_kernel" in k or "gemm_" in k) and not v]
         if bare:
             raise AssertionError(f"{src}: no HGMMA in {bare}")
         report[src] = ("; ".join(kernels) + " | HGMMA per instantiation: "
@@ -1200,7 +1292,7 @@ def build_report() -> dict:
 def short_kernel_name(mangled: str) -> str:
     """A mangled instantiation's kernel name and template arguments, e.g.
     dcn_fwd_kernel<f,1,0,128>."""
-    m = re.search(r"\d+((?:dcn|fwd|dwmo|dx)_\w+?_kernel)(?:I(.*?)EEv)?", mangled)
+    m = re.search(r"\d+((?:dcn|fwd|dwmo|dx|gemm|sum|dma|tile)_\w*?kernel)(?:I(.*?)EEv)?", mangled)
     if not m:
         return mangled[:40]
     flat = re.findall(r"Lb(\d)E|Li(\d+)E|(13__nv_bfloat16)|(f)", m.group(2) or "")

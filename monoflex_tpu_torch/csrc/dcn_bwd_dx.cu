@@ -29,6 +29,12 @@
 //    cp.async, serving all 9 taps.  Where 64 channels do not fit beside the
 //    rest (R' >= 3), the chunk is taken in two halves of 32 channels, each a
 //    stage of two k-steps;
+//  - beyond R' = 4 (the clamp of TPU.DCN_MAX_OFFSET_PER_STAGE's first stage
+//    is 8) the halo grows as (2R' + 10)(2R' + 18) pixels: g is staged in
+//    16-channel slices (a stage of one k-step), the floors of one tap at a
+//    time (two buffers: the next stage's are computed from the offsets in
+//    device memory while this stage's are read), and the candidate table
+//    holds (2R'+1)^2 entries, so the test count grows with it;
 //  - the producer, all 16 warps, four output pixels a warp at a time, eight
 //    lanes each: the lanes of a pixel test its (2R'+1)^2 candidate sources
 //    against the staged floors, 32 at a time (four rounds of eight), a
@@ -76,7 +82,9 @@
 // block fills an SM's shared memory); at BN = 64 the products of warpgroups
 // 0 and 1 delay their sampling; the A tile is still rebuilt for each
 // 128-channel tile of C (4 times at C = 512); a block stages its halo and
-// floors before its first product.
+// floors before its first product.  Beyond R' = 4 the candidate tests (289
+// at R' = 8) are paid for every 16-channel slice of g, four times as often
+// as at R' = 3 and 4.
 
 #include "sm90_mma.cuh"
 
@@ -93,33 +101,66 @@ constexpr int THREADS = 512;             // four warpgroups, all sample
 constexpr int A_BYTES = BM * kRowBytes;  // one part of A
 constexpr int NW = 64;                   // input channels a product warpgroup takes
 constexpr int kSmemLimit = 232448;       // a block's dynamic shared memory on sm_90
-constexpr int kMaxCand = 96;             // candidates (2R'+1)^2 <= 96: R' <= 4
+constexpr int kNarrowReach = 4;          // R' <= 4: every tap's floors staged once
+constexpr int kMaxCand = 96;             // candidates (2R'+1)^2 <= 96 at R' <= 4
 constexpr uint16_t kNoSource = 0xFFFF;   // floor code of a halo pixel off the map
 
 __host__ __device__ constexpr int align16(int v) { return (v + 15) & ~15; }
 
 // The shared-memory layout for clamp reach R', halo channels HC and BN input
-// channels a block; the launch is sized from it (halo_channels below).
+// channels a block; the launch is sized from it (halo_channels below), and
+// ops/dcn_cuda.py::dx_smem_bytes mirrors it.  R' <= 4 stages the floors of
+// all 9 taps and a table of kMaxCand candidates; beyond, the floors of two
+// taps (this stage's and the next's) and (2R'+1)^2 candidates rounded up to
+// a batch of 32.
 struct Layout {
-  int P, hw, nh;                      // halo margin, width, pixels
+  int P, hw, nh, taps, ncand;         // halo margin, width, pixels; floor taps, candidates
   int a, w, halo, code, ly, lx, m, cand, list, bar, bytes;
   __host__ __device__ Layout(int reach, int hc, int bn) {
     P = reach + 1;
     hw = TW + 2 * P;
     nh = (TH + 2 * P) * hw;
+    const int D = 2 * reach + 1;
+    taps = reach <= kNarrowReach ? 9 : 2;
+    ncand = reach <= kNarrowReach ? kMaxCand : (D * D + 31) / 32 * 32;
     a = 0;                                      // 2 stages x PARTS x A
     w = 2 * PARTS * A_BYTES;                    // PARTS x W chunk (bn rows)
     halo = w + PARTS * bn * kRowBytes;          // g: nh x hc f32
-    code = halo + nh * hc * 4;                  // floors: 9 x nh u16
-    ly = code + align16(9 * nh * 2);            // fractional parts and mask:
-    lx = ly + 9 * nh * 4;                       // 9 x nh f32 each
-    m = lx + 9 * nh * 4;
-    cand = m + 9 * nh * 4;                      // the candidates: kMaxCand u32
-    list = cand + kMaxCand * 4;                 // per pixel in flight: 32 weights
+    code = halo + nh * hc * 4;                  // floors: taps x nh u16
+    ly = code + align16(taps * nh * 2);         // fractional parts and mask:
+    lx = ly + taps * nh * 4;                    // taps x nh f32 each
+    m = lx + taps * nh * 4;
+    cand = m + taps * nh * 4;                   // the candidates: ncand u32
+    list = cand + ncand * 4;                    // per pixel in flight: 32 weights
     bar = list + THREADS / 8 * 32 * 4;          // the W chunk's mbarrier
     bytes = bar + 8 + 1024;                     // + the 1024-byte alignment
   }
 };
+
+// The floor of tap k's sample point at halo pixel (hy, hx) relative to the
+// tap's integer point (dy0, dx0 in [-R', R'], stored + 128), its fractional
+// parts and the mask, computed as the plain op computes them; a pixel off the
+// map gets kNoSource, which no candidate matches, and weight 0
+__device__ __forceinline__ void tap_floor(const float* raw_off, const float* raw_m, bool in,
+                                          int hy, int hx, int k, float R, uint16_t& code,
+                                          float& ly, float& lx, float& m) {
+  code = kNoSource;
+  ly = lx = m = 0.f;
+  if (!in) return;
+  const int ty = hy + k / 3 - 1;
+  const int tx = hx + k % 3 - 1;
+  const float oy = fminf(fmaxf(raw_off[2 * k], -R), R);
+  const float ox = fminf(fmaxf(raw_off[2 * k + 1], -R), R);
+  const float py = static_cast<float>(ty) + oy;
+  const float px = static_cast<float>(tx) + ox;
+  const float fy = floorf(py);
+  const float fx = floorf(px);
+  ly = py - fy;
+  lx = px - fx;
+  m = raw_m[k];
+  code = static_cast<uint16_t>((static_cast<int>(fy) - ty + 128) |
+                               ((static_cast<int>(fx) - tx + 128) << 8));
+}
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
   // the bytes past src_bytes are filled with zeros
@@ -144,6 +185,10 @@ dcn_bwd_dx_kernel(const float* __restrict__ offset, const float* __restrict__ ma
   constexpr int kHalves = BK / HC;   // stages per (chunk, tap)
   constexpr int kSteps = HC / 16;    // wgmma k-steps per stage
   constexpr int kZ = HC / 8;         // channels of z a lane holds
+  constexpr int kZ0 = kZ < 4 ? kZ : 4;  // in runs of kZ0 at channel kZ0 j (+ 32)
+  // HC = 16 is the layout of R' > 4 (halo_channels): the floors of one tap
+  // at a time, in two buffers, computed from the offsets in device memory
+  constexpr bool kPerTap = HC == 16;
   constexpr int kProd = BN / 32;     // warpgroups that multiply: 2 or 4
   constexpr int B_BYTES = BN * kRowBytes;  // one part of W's chunk
   const Layout L(reach, HC, BN);
@@ -225,18 +270,33 @@ dcn_bwd_dx_kernel(const float* __restrict__ offset, const float* __restrict__ ma
     sm90::mbar_init(full, 1);
     sm90::mbar_init_fence();
   }
-  // the halo's offsets and masks (raw, 27 a pixel, zero off the map) into the
-  // A stages, which the first sampling overwrites; g's halo beside them
+  // the floors of tap k for every halo pixel into floor buffer fb, from the
+  // offsets and masks in device memory (R' > 4)
+  auto tap_floors = [&](int k, int fb) {
+    for (int hp = tid; hp < nh; hp += THREADS) {
+      const int hy = y0 - P + hp / hw;
+      const int hx = x0 - P + hp % hw;
+      const bool in = hy >= 0 && hy < H && hx >= 0 && hx < W;
+      const long long pix = in ? static_cast<long long>(b * H + hy) * W + hx : 0;
+      tap_floor(offset + pix * 18, mask + pix * 9, in, hy, hx, k, R, s_code[fb * nh + hp],
+                s_ly[fb * nh + hp], s_lx[fb * nh + hp], s_m[fb * nh + hp]);
+    }
+  };
+  // R' <= 4: the halo's offsets and masks (raw, 27 a pixel, zero off the
+  // map) into the A stages, which the first sampling overwrites; g's halo
+  // beside them
   float* s_raw = reinterpret_cast<float*>(smem + L.a);
-  for (int u = tid; u < nh * 27; u += THREADS) {
-    const int hp = u / 27;
-    const int t = u % 27;
-    const int hy = y0 - P + hp / hw;
-    const int hx = x0 - P + hp % hw;
-    const bool in = hy >= 0 && hy < H && hx >= 0 && hx < W;
-    const long long pix = static_cast<long long>(b * H + hy) * W + hx;
-    const float* src = t < 18 ? offset + pix * 18 + t : mask + pix * 9 + t - 18;
-    cp_async4(s_raw + u, in ? src : offset, in ? 4 : 0);
+  if constexpr (!kPerTap) {
+    for (int u = tid; u < nh * 27; u += THREADS) {
+      const int hp = u / 27;
+      const int t = u % 27;
+      const int hy = y0 - P + hp / hw;
+      const int hx = x0 - P + hp % hw;
+      const bool in = hy >= 0 && hy < H && hx >= 0 && hx < W;
+      const long long pix = static_cast<long long>(b * H + hy) * W + hx;
+      const float* src = t < 18 ? offset + pix * 18 + t : mask + pix * 9 + t - 18;
+      cp_async4(s_raw + u, in ? src : offset, in ? 4 : 0);
+    }
   }
   stage_halo(0);
   // the candidates: entry ci is the source p = q - (ky + e, kx + f), (e, f)
@@ -245,51 +305,34 @@ dcn_bwd_dx_kernel(const float* __restrict__ offset, const float* __restrict__ ma
   // centre with a code no floor matches
   const int D = 2 * reach + 1;
   const int n_cand = D * D;
-  if (tid < kMaxCand) {
-    const int e = tid / D - reach;
-    const int f = tid % D - reach;
-    s_cand[tid] = tid < n_cand ? static_cast<uint32_t>((P - e) * hw + (P - f)) |
-                                     static_cast<uint32_t>(e + 128) << 16 |
-                                     static_cast<uint32_t>(f + 128) << 24
-                               : static_cast<uint32_t>(P * hw + P) | 0xFFFF0000u;
+  for (int ci = tid; ci < L.ncand; ci += THREADS) {
+    const int e = ci / D - reach;
+    const int f = ci % D - reach;
+    s_cand[ci] = ci < n_cand ? static_cast<uint32_t>((P - e) * hw + (P - f)) |
+                                   static_cast<uint32_t>(e + 128) << 16 |
+                                   static_cast<uint32_t>(f + 128) << 24
+                             : static_cast<uint32_t>(P * hw + P) | 0xFFFF0000u;
   }
+  if constexpr (kPerTap) tap_floors(0, 0);
   cp_async_wait_all();
   __syncthreads();
-  // per (halo pixel, tap): the floor of the sample point relative to the
-  // tap's integer point (dy0, dx0 in [-R', R'], stored + 128), its fractional
-  // parts and the mask, computed as the plain op computes them
-  for (int u = tid; u < nh * 9; u += THREADS) {
-    const int hp = u / 9;
-    const int k = u % 9;
-    const int hy = y0 - P + hp / hw;
-    const int hx = x0 - P + hp % hw;
-    uint16_t code = kNoSource;
-    float ly = 0.f, lx = 0.f, m = 0.f;
-    if (hy >= 0 && hy < H && hx >= 0 && hx < W) {
-      const int ty = hy + k / 3 - 1;
-      const int tx = hx + k % 3 - 1;
-      const float oy = fminf(fmaxf(s_raw[hp * 27 + 2 * k], -R), R);
-      const float ox = fminf(fmaxf(s_raw[hp * 27 + 2 * k + 1], -R), R);
-      const float py = static_cast<float>(ty) + oy;
-      const float px = static_cast<float>(tx) + ox;
-      const float fy = floorf(py);
-      const float fx = floorf(px);
-      ly = py - fy;
-      lx = px - fx;
-      m = s_raw[hp * 27 + 18 + k];
-      code = static_cast<uint16_t>((static_cast<int>(fy) - ty + 128) |
-                                   ((static_cast<int>(fx) - tx + 128) << 8));
+  // R' <= 4: the floors of every (halo pixel, tap) from the staged offsets
+  if constexpr (!kPerTap) {
+    for (int u = tid; u < nh * 9; u += THREADS) {
+      const int hp = u / 9;
+      const int k = u % 9;
+      const int hy = y0 - P + hp / hw;
+      const int hx = x0 - P + hp % hw;
+      const bool in = hy >= 0 && hy < H && hx >= 0 && hx < W;
+      tap_floor(s_raw + hp * 27, s_raw + hp * 27 + 18, in, hy, hx, k, R, s_code[k * nh + hp],
+                s_ly[k * nh + hp], s_lx[k * nh + hp], s_m[k * nh + hp]);
     }
-    s_code[k * nh + hp] = code;
-    s_ly[k * nh + hp] = ly;
-    s_lx[k * nh + hp] = lx;
-    s_m[k * nh + hp] = m;
   }
   __syncthreads();  // barriers initialised; halo, floors and candidates in place
   if (tid == 0) copy_w(0);
 
   const int grp = lane >> 3;  // the warp's pixel this lane works on (4 a warp)
-  const int j = lane & 7;     // and its channels 4j .. 4j + 3 (+ 32 at HC = 64)
+  const int j = lane & 7;     // and its channels 4j .. 4j + 3 (+ 32 at HC = 64; 2j, 2j + 1 at 16)
   // the weights of the hits of this lane's pixel, by candidate bit
   float* s_list = reinterpret_cast<float*>(smem + L.list) + (tid >> 3) * 32;
   const int batches = (n_cand + 31) / 32;
@@ -313,10 +356,16 @@ dcn_bwd_dx_kernel(const float* __restrict__ offset, const float* __restrict__ ma
     uint8_t* a = smem + L.a + buf * PARTS * A_BYTES;
     const int ky = k / 3 - 1;
     const int kx = k % 3 - 1;
-    const uint16_t* code_k = s_code + k * nh;
-    const float* ly_k = s_ly + k * nh;
-    const float* lx_k = s_lx + k * nh;
-    const float* m_k = s_m + k * nh;
+    // R' > 4: the next stage's floors into the other buffer, whose last
+    // reader, stage s - 1's sampling, finished before the last barrier
+    if constexpr (kPerTap) {
+      if (s + 1 < n_stages) tap_floors((s + 1) % 9, (s + 1) & 1);
+    }
+    const int fk = kPerTap ? (s & 1) : k;   // this tap's floor buffer
+    const uint16_t* code_k = s_code + fk * nh;
+    const float* ly_k = s_ly + fk * nh;
+    const float* lx_k = s_lx + fk * nh;
+    const float* m_k = s_m + fk * nh;
     // ---- the producer: z_k of 128 pixels, 4 a warp at a time, 8 lanes each ----
     for (int pass = 0; pass < BM / 64; ++pass) {
       const int row = 64 * pass + 4 * wid + grp;
@@ -360,46 +409,66 @@ dcn_bwd_dx_kernel(const float* __restrict__ offset, const float* __restrict__ ma
           hits &= hits - 1;
           const float w0 = s_list[b0];
           const float w1 = two ? s_list[b1] : 0.f;
-          const float* g0 = s_halo + (base + static_cast<int>(cand_b[b0] & 0xFFFFu)) * HC + 4 * j;
-          const float* g1 = s_halo + (base + static_cast<int>(cand_b[b1] & 0xFFFFu)) * HC + 4 * j;
-          float4 v0[kZ / 4], v1[kZ / 4];
+          const float* g0 = s_halo + (base + static_cast<int>(cand_b[b0] & 0xFFFFu)) * HC + kZ0 * j;
+          const float* g1 = s_halo + (base + static_cast<int>(cand_b[b1] & 0xFFFFu)) * HC + kZ0 * j;
+          if constexpr (kZ == 2) {
+            const float2 v0 = *reinterpret_cast<const float2*>(g0);
+            const float2 v1 = *reinterpret_cast<const float2*>(g1);
+            z[0] = fmaf(w0, v0.x, z[0]);
+            z[1] = fmaf(w0, v0.y, z[1]);
+            z[0] = fmaf(w1, v1.x, z[0]);
+            z[1] = fmaf(w1, v1.y, z[1]);
+          } else {
+            float4 v0[kZ / 4], v1[kZ / 4];
 #pragma unroll
-          for (int h = 0; h < kZ / 4; ++h) {
-            v0[h] = *reinterpret_cast<const float4*>(g0 + 32 * h);
-            v1[h] = *reinterpret_cast<const float4*>(g1 + 32 * h);
-          }
+            for (int h = 0; h < kZ / 4; ++h) {
+              v0[h] = *reinterpret_cast<const float4*>(g0 + 32 * h);
+              v1[h] = *reinterpret_cast<const float4*>(g1 + 32 * h);
+            }
 #pragma unroll
-          for (int h = 0; h < kZ / 4; ++h) {
-            z[4 * h] = fmaf(w0, v0[h].x, z[4 * h]);
-            z[4 * h + 1] = fmaf(w0, v0[h].y, z[4 * h + 1]);
-            z[4 * h + 2] = fmaf(w0, v0[h].z, z[4 * h + 2]);
-            z[4 * h + 3] = fmaf(w0, v0[h].w, z[4 * h + 3]);
-          }
+            for (int h = 0; h < kZ / 4; ++h) {
+              z[4 * h] = fmaf(w0, v0[h].x, z[4 * h]);
+              z[4 * h + 1] = fmaf(w0, v0[h].y, z[4 * h + 1]);
+              z[4 * h + 2] = fmaf(w0, v0[h].z, z[4 * h + 2]);
+              z[4 * h + 3] = fmaf(w0, v0[h].w, z[4 * h + 3]);
+            }
 #pragma unroll
-          for (int h = 0; h < kZ / 4; ++h) {
-            z[4 * h] = fmaf(w1, v1[h].x, z[4 * h]);
-            z[4 * h + 1] = fmaf(w1, v1[h].y, z[4 * h + 1]);
-            z[4 * h + 2] = fmaf(w1, v1[h].z, z[4 * h + 2]);
-            z[4 * h + 3] = fmaf(w1, v1[h].w, z[4 * h + 3]);
+            for (int h = 0; h < kZ / 4; ++h) {
+              z[4 * h] = fmaf(w1, v1[h].x, z[4 * h]);
+              z[4 * h + 1] = fmaf(w1, v1[h].y, z[4 * h + 1]);
+              z[4 * h + 2] = fmaf(w1, v1[h].z, z[4 * h + 2]);
+              z[4 * h + 3] = fmaf(w1, v1[h].w, z[4 * h + 3]);
+            }
           }
         }
         __syncwarp();  // the list is read before the next batch writes it
       }
-      // z split into bf16 hi and lo, 4 channels (8 bytes) at a time, into A's
-      // swizzled row at this stage's columns
-#pragma unroll
-      for (int h = 0; h < kZ / 4; ++h) {
-        const int col = half * HC + 32 * h + 4 * j;
+      // z split into bf16 hi and lo, 4 channels (8 bytes) at a time (2 at
+      // HC = 16), into A's swizzled row at this stage's columns
+      auto u32 = [](const __nv_bfloat162& v) { return *reinterpret_cast<const uint32_t*>(&v); };
+      if constexpr (kZ == 2) {
+        const int col = half * HC + 2 * j;
         const int off = sm90::swz(row, col >> 3) + 2 * (col & 7);
-        const __nv_bfloat162 h0 = __floats2bfloat162_rn(z[4 * h], z[4 * h + 1]);
-        const __nv_bfloat162 h1 = __floats2bfloat162_rn(z[4 * h + 2], z[4 * h + 3]);
+        const __nv_bfloat162 h0 = __floats2bfloat162_rn(z[0], z[1]);
         const float2 f0 = __bfloat1622float2(h0);
-        const float2 f1 = __bfloat1622float2(h1);
-        const __nv_bfloat162 l0 = __floats2bfloat162_rn(z[4 * h] - f0.x, z[4 * h + 1] - f0.y);
-        const __nv_bfloat162 l1 = __floats2bfloat162_rn(z[4 * h + 2] - f1.x, z[4 * h + 3] - f1.y);
-        auto u32 = [](const __nv_bfloat162& v) { return *reinterpret_cast<const uint32_t*>(&v); };
-        *reinterpret_cast<uint2*>(a + off) = make_uint2(u32(h0), u32(h1));
-        *reinterpret_cast<uint2*>(a + A_BYTES + off) = make_uint2(u32(l0), u32(l1));
+        const __nv_bfloat162 l0 = __floats2bfloat162_rn(z[0] - f0.x, z[1] - f0.y);
+        *reinterpret_cast<uint32_t*>(a + off) = u32(h0);
+        *reinterpret_cast<uint32_t*>(a + A_BYTES + off) = u32(l0);
+      } else {
+#pragma unroll
+        for (int h = 0; h < kZ / 4; ++h) {
+          const int col = half * HC + 32 * h + 4 * j;
+          const int off = sm90::swz(row, col >> 3) + 2 * (col & 7);
+          const __nv_bfloat162 h0 = __floats2bfloat162_rn(z[4 * h], z[4 * h + 1]);
+          const __nv_bfloat162 h1 = __floats2bfloat162_rn(z[4 * h + 2], z[4 * h + 3]);
+          const float2 f0 = __bfloat1622float2(h0);
+          const float2 f1 = __bfloat1622float2(h1);
+          const __nv_bfloat162 l0 = __floats2bfloat162_rn(z[4 * h] - f0.x, z[4 * h + 1] - f0.y);
+          const __nv_bfloat162 l1 = __floats2bfloat162_rn(z[4 * h + 2] - f1.x,
+                                                          z[4 * h + 3] - f1.y);
+          *reinterpret_cast<uint2*>(a + off) = make_uint2(u32(h0), u32(h1));
+          *reinterpret_cast<uint2*>(a + A_BYTES + off) = make_uint2(u32(l0), u32(l1));
+        }
       }
     }
     sm90::fence_proxy_async();
@@ -512,12 +581,13 @@ int launch(const float* off, const float* m, const __nv_bfloat16* w_img, const f
   return static_cast<int>(cudaGetLastError());
 }
 
-// g's halo channels a block stages at once at clamp reach R': 64 where the
-// block's shared memory allows at either tile of C, else 32; 0 where neither
-// fits or the candidates outgrow their table (R' > 4, ops/dcn_cuda.py::
-// DX_MAX_REACH)
+// g's halo channels a block stages at once at clamp reach R': at R' <= 4, 64
+// where the block's shared memory allows at either tile of C, else 32; beyond,
+// 16 (the floors then staged per tap); 0 where nothing fits (R' > 11,
+// ops/dcn_cuda.py::DX_MAX_REACH)
 int halo_channels(int reach) {
-  if (reach < 0 || (2 * reach + 1) * (2 * reach + 1) > kMaxCand) return 0;
+  if (reach < 0) return 0;
+  if (reach > kNarrowReach) return Layout(reach, 16, 128).bytes <= kSmemLimit ? 16 : 0;
   for (int hc = 64; hc >= 32; hc /= 2) {
     const Layout L(reach, hc, 128);
     // the shared memory, and the raw offsets and masks in the A stages
@@ -534,7 +604,8 @@ int dispatch(int hc, int bn, const float* off, const float* m, const __nv_bfloat
     return kernel_launch(off, m, w_img, g, dx, B, H, W, C, Co, R, reach, s);
   };
   if (hc == 64) return bn == 64 ? run(launch<kBf16Math, 64, 64>) : run(launch<kBf16Math, 64, 128>);
-  return bn == 64 ? run(launch<kBf16Math, 32, 64>) : run(launch<kBf16Math, 32, 128>);
+  if (hc == 32) return bn == 64 ? run(launch<kBf16Math, 32, 64>) : run(launch<kBf16Math, 32, 128>);
+  return bn == 64 ? run(launch<kBf16Math, 16, 64>) : run(launch<kBf16Math, 16, 128>);
 }
 
 }  // namespace
@@ -544,13 +615,15 @@ int dispatch(int hc, int bn, const float* off, const float* m, const __nv_bfloat
 // parts must be this build's PARTS), then launches dx, both on `stream`;
 // returns the CUDA error (0 on success).  The caller checks shapes, dtypes,
 // devices and contiguity, that every index fits in 32 bits and that the
-// reach ceil(max_offset) fits (R' <= 4; else this returns
-// cudaErrorInvalidValue before it launches anything), and picks the
-// block's input channels bn (64 or 128, ops/dcn_cuda.py::dx_tile_c).
+// reach ceil(max_offset) fits (R' <= 11), picks the block's input channels
+// bn (64 or 128, ops/dcn_cuda.py::dx_tile_c) and gives the block's shared
+// memory as its mirror of Layout computes it (ops/dcn_cuda.py::
+// dx_smem_bytes); where the reach does not fit or the count differs, this
+// returns cudaErrorInvalidValue before it launches anything.
 extern "C" int dcn_bwd_dx(int bf16_math, const void* offset, const void* mask,
-                          const void* weight, void* w_img, int parts, int bn, const void* g,
-                          void* dx, int B, int H, int W, int C, int Co, float max_offset,
-                          int reach, void* stream) {
+                          const void* weight, void* w_img, int parts, int bn, int smem_bytes,
+                          const void* g, void* dx, int B, int H, int W, int C, int Co,
+                          float max_offset, int reach, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* off = static_cast<const float*>(offset);
   const float* m = static_cast<const float*>(mask);
@@ -558,7 +631,8 @@ extern "C" int dcn_bwd_dx(int bf16_math, const void* offset, const void* mask,
   const float* gg = static_cast<const float*>(g);
   float* d = static_cast<float*>(dx);
   const int hc = halo_channels(reach);
-  if (hc == 0 || parts != PARTS || (bn != 64 && bn != 128))
+  if (hc == 0 || parts != PARTS || (bn != 64 && bn != 128) ||
+      Layout(reach, hc, bn).bytes != smem_bytes)
     return static_cast<int>(cudaErrorInvalidValue);
   const int groups = 9 * ((Co + BK - 1) / BK) * ((C + bn - 1) / bn) * bn * 8;
   dx_weight_image_kernel<<<(groups + 255) / 256, 256, 0, s>>>(static_cast<const float*>(weight),

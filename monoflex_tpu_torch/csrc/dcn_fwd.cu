@@ -38,6 +38,9 @@
 //    buffers.  One barrier a stage;
 //  - the epilogue (bias, or scale, shift and ReLU) acts on the f32
 //    accumulators before the one f32 store.
+// The stage loop and the store are fwd_stages.cuh's run_stages and
+// store_rows, which the ablations with dcn_fwd's products (dcn_ablate.cu)
+// run with other A-tile producers; this file holds the sampling producer.
 // One block an SM (two stages of three parts: 159 KB at BN = 64, 207 KB at
 // 128), 16 warps gathering at BN = 64.  A first version with one sampling
 // warpgroup feeding two wgmma warpgroups through a full/empty ring ran at
@@ -82,27 +85,25 @@
 // small kernel per call; BN = 128 resamples the A tile once per
 // output-channel tile.
 
+#include "fwd_stages.cuh"
 #include "sm90_mma.cuh"
 
 namespace {
 
-using sm90::kRowBytes;
-
-constexpr int BM = 128;       // output pixels per block (two m64 warpgroups)
-constexpr int BK = 64;        // channels per stage (one swizzled chunk)
-constexpr int PARTS = 3;      // bf16 parts of each f32 operand (hi, mid, lo)
-constexpr int A_BYTES = BM * kRowBytes;  // one part of A
+constexpr int BM = kStageRows;  // output pixels per block (two m64 warpgroups)
+constexpr int BK = 64;          // channels per stage (one swizzled chunk)
+constexpr int PARTS = 3;        // bf16 parts of each f32 operand (hi, mid, lo)
+constexpr int A_BYTES = kStageA;  // one part of A
+static_assert(BK == kImageChunk && PARTS == kImageParts, "W's layout (fwd_stages.cuh)");
 
 template <int BN>
 struct Smem {
-  // all warpgroups sample, the first two also issue wgmma: four at BN = 64,
-  // two at BN = 128 (whose accumulators need the registers); one block an
-  // SM, as two stages of three parts fill its shared memory
-  static constexpr int kThreads = BN == 64 ? 512 : 256;
-  static constexpr int kB = BN * kRowBytes;                    // one part of B
-  static constexpr int kStage = PARTS * A_BYTES + PARTS * kB;  // A parts, B parts
-  static constexpr int kOffset = 2 * kStage;                   // two stages, then the
-  static constexpr int kMask = kOffset + BM * 18 * 4;          // block's offsets and masks
+  // the stage pipeline's two stages (fwd_stages.cuh), then the block's
+  // offsets and masks; one block an SM, as two stages of three parts fill
+  // its shared memory
+  static constexpr int kThreads = FwdStages<BN>::kThreads;
+  static constexpr int kOffset = FwdStages<BN>::kBytes;
+  static constexpr int kMask = kOffset + BM * 18 * 4;
   static constexpr int kBar = kMask + BM * 9 * 4;
   static constexpr int kBytes = kBar + 2 * 8 + 1024;
 };
@@ -151,36 +152,16 @@ dcn_fwd_kernel(const T* __restrict__ x, const float* __restrict__ offset,
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::kBar);  // W of each stage
 
   const int tid = threadIdx.x;
-  const int wg = tid >> 7;
-  const int warp = (tid >> 5) & 3;
-  const int lane = tid & 31;
   const int npix = B * H * W;
   const int p0 = blockIdx.x * BM;
   const int nt = blockIdx.y;
   const int n_cc = (C + BK - 1) / BK;
   const int n_nt = gridDim.y;
-  const int n_stages = 9 * n_cc;
-  const uint32_t w_bytes = kParts * S::kB;
 
-  auto copy_w = [&](int s) {
-    const int buf = s & 1;
-    const long long chunk = (static_cast<long long>(s / n_cc) * n_cc + s % n_cc) * n_nt + nt;
-    uint8_t* b = smem + buf * S::kStage + PARTS * A_BYTES;
-    sm90::mbar_arrive_expect_tx(&full[buf], w_bytes);
-    sm90::bulk_copy(b, w_img + chunk * PARTS * BN * BK, w_bytes, &full[buf]);
-  };
-
-  if (tid == 0) {
-    sm90::mbar_init(&full[0], 1);
-    sm90::mbar_init(&full[1], 1);
-    sm90::mbar_init_fence();
-  }
   // the block's offsets and masks, read once, coalesced
   const int nrows = min(BM, npix - p0);
   for (int e = tid; e < nrows * 18; e += THREADS) s_off[e] = offset[p0 * 18 + e];
   for (int e = tid; e < nrows * 9; e += THREADS) s_mask[e] = mask[p0 * 9 + e];
-  __syncthreads();
-  if (tid == 0) copy_w(0);
 
   // sampling: 8 threads per pixel, one 8-channel group each, so the 8 lanes
   // of a pixel read a corner's run of 64 channels in one go
@@ -189,17 +170,11 @@ dcn_fwd_kernel(const T* __restrict__ x, const float* __restrict__ offset,
   const int row0 = tid >> 3;
   const bool vec = (C % 8 == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
 
-  float acc[BN / 2];
-#pragma unroll
-  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
-
-  for (int s = 0; s < n_stages; ++s) {
-    const int buf = s & 1;
-    uint8_t* a = smem + buf * S::kStage;  // A's parts, A_BYTES apart
+  // stage s: tap s / n_cc, channel chunk s % n_cc
+  auto w_of = [&](int s) { return StageW{static_cast<long long>(s) * n_nt + nt, 0}; };
+  auto produce = [&](int s, uint8_t* a) {
     const int k = s / n_cc;
     const int c = (s % n_cc) * BK + 8 * j;
-    // ---- sample stage s into buffer buf (its last reader, stage s - 2's
-    // products, finished before the barrier of stage s - 1) ----
 #pragma unroll
     for (int pass = 0; pass < BM / kRowsPerPass; ++pass) {
       const int row = row0 + kRowsPerPass * pass;
@@ -279,116 +254,13 @@ dcn_fwd_kernel(const T* __restrict__ x, const float* __restrict__ offset,
           *reinterpret_cast<uint4*>(a + p * A_BYTES + sm90::swz(row, j)) = parts[p];
       }
     }
-    sm90::fence_proxy_async();
-    __syncthreads();  // stage s's A tile is complete, stage s - 1's products done
-    // W of stage s + 1 into the other buffer, whose last reader, stage s - 1's
-    // products, finished before the barrier
-    if (tid == 0 && s + 1 < n_stages) copy_w(s + 1);
-    // ---- products on wgmma; warpgroup wg < 2 takes rows 64 wg .. 64 wg +
-    // 63, while warpgroups 2 and 3 (BN = 64) go on to sample the next stage
-    // into the other buffer.  Each stage's passes go into a fresh accumulator
-    // `part`, added into the f32 sum `acc` with round-to-nearest adds: the
-    // tensor cores truncate as they add, and over the whole 9 C depth in one
-    // accumulator that bias grows with it.  The products complete within the
-    // stage: no accumulator is in flight while the sampling code runs ----
-    if (wg < 2) {
-      sm90::mbar_wait(&full[buf], (s >> 1) & 1);
-      const uint32_t a0 = sm90::smem_u32(a) + wg * (A_BYTES / 2);
-      const uint32_t b0 = sm90::smem_u32(a) + PARTS * A_BYTES;
-      // part p of A or B at kk's 16 columns
-      auto da = [&](int p, int kk) { return sm90::desc(a0 + p * A_BYTES + 32 * kk, 16, 1024); };
-      auto db = [&](int p, int kk) { return sm90::desc(b0 + p * S::kB + 32 * kk, 16, 1024); };
-      float part[BN / 2];
-#pragma unroll
-      for (int i = 0; i < BN / 2; ++i) part[i] = 0.f;
-      sm90::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        sm90::wgmma<BN, 0, 0>(part, da(0, kk), db(0, kk));
-        if constexpr (!kBf16Math) {
-          // every product of parts whose orders sum to at most 2
-          sm90::wgmma<BN, 0, 0>(part, da(0, kk), db(1, kk));
-          sm90::wgmma<BN, 0, 0>(part, da(1, kk), db(0, kk));
-          sm90::wgmma<BN, 0, 0>(part, da(0, kk), db(2, kk));
-          sm90::wgmma<BN, 0, 0>(part, da(2, kk), db(0, kk));
-          sm90::wgmma<BN, 0, 0>(part, da(1, kk), db(1, kk));
-        }
-      }
-      sm90::wgmma_commit();
-      sm90::wgmma_wait<0>();
-      sm90::fence_acc<BN / 2>(part);
-#pragma unroll
-      for (int i = 0; i < BN / 2; ++i) acc[i] += part[i];
-    }
-  }
-  if (wg >= 2) return;  // the sampling-only warpgroups hold no sums
+  };
 
-  // accumulator fragment of m64nBN: register 4j + r holds row
-  // 16 warp + lane/4 + 8 (r/2), column 8j + 2 (lane%4) + r%2
-  const bool pair = (Co % 2 == 0);
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
-    const int co = nt * BN + 8 * j + 2 * (lane & 3);
-    if (co >= Co) continue;
-    const bool two = co + 1 < Co;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int opix = p0 + 64 * wg + 16 * warp + (lane >> 2) + 8 * h;
-      if (opix >= npix) continue;
-      float v0 = acc[4 * j + 2 * h];
-      float v1 = acc[4 * j + 2 * h + 1];
-      // the epilogue in the order of the TPU kernel: f32 accumulator, then
-      // scale, shift and ReLU before the one write
-      if (scale) {
-        v0 = fmaxf(v0 * scale[co] + shift[co], 0.f);
-        if (two) v1 = fmaxf(v1 * scale[co + 1] + shift[co + 1], 0.f);
-      } else if (bias) {
-        v0 += bias[co];
-        if (two) v1 += bias[co + 1];
-      }
-      float* dst = out + static_cast<long long>(opix) * Co + co;
-      if (pair && two) {
-        *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
-      } else {
-        dst[0] = v0;
-        if (two) dst[1] = v1;
-      }
-    }
-  }
-}
-
-// W (9, C, Co) f32 -> w_img (9, n_cc, n_nt, 3, BN, 64) bf16: per (tap, channel
-// chunk, output-channel tile) the hi, mid and lo tiles, rows of output channels
-// with 64 channels each, zero-padded and swizzled (ops/dcn_cuda.py::
-// fwd_weight_image is its plain version).  One thread per 16-byte group.
-__global__ void fwd_weight_image_kernel(const float* __restrict__ w, __nv_bfloat16* __restrict__ img,
-                                        int C, int Co, int bn, int bf16_math) {
-  const int n_cc = (C + BK - 1) / BK;
-  const int n_nt = (Co + bn - 1) / bn;
-  const int total = 9 * n_cc * n_nt * bn * 8;
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= total) return;
-  const int grp = t & 7;
-  const int n = (t >> 3) % bn;
-  const int tile = (t >> 3) / bn;  // (k, cc, nt)
-  const int nt = tile % n_nt;
-  const int cc = (tile / n_nt) % n_cc;
-  const int k = tile / (n_nt * n_cc);
-  const int co = nt * bn + n;
-  float v[8];
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    const int c = cc * BK + 8 * grp + e;
-    v[e] = (c < C && co < Co) ? w[(static_cast<long long>(k) * C + c) * Co + co] : 0.f;
-  }
-  uint4 parts[PARTS];
-  sm90::split8x3(v, parts[0], parts[1], parts[2]);
-  uint8_t* base =
-      reinterpret_cast<uint8_t*>(img) + static_cast<long long>(tile) * PARTS * bn * kRowBytes;
-#pragma unroll
-  for (int p = 0; p < PARTS; ++p)
-    *reinterpret_cast<uint4*>(base + p * bn * kRowBytes + sm90::swz(n, grp)) =
-        (bf16_math && p > 0) ? make_uint4(0u, 0u, 0u, 0u) : parts[p];
+  float acc[BN / 2];
+  run_stages<BN, kParts, BK / 16>(smem, full, w_img, 9 * n_cc, w_of, produce, acc);
+  if (tid >= 256) return;  // the sampling-only warpgroups hold no sums
+  auto out_row = [&](int r) { return p0 + r < npix ? static_cast<long long>(p0 + r) * Co : -1ll; };
+  store_rows<BN>(acc, out_row, out, Co, nt, bias, scale, shift);
 }
 
 template <typename T, bool kRoundX, bool kBf16Math, int BN>

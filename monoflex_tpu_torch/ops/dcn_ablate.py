@@ -1,8 +1,11 @@
 """Ablations of the DCNv2 forward: the functions the TPU diagnostics tools
 strip the forward kernel to (``tools/kernel_diag.py`` and
 ``tools/fwd_ablate.py``), each as a plain PyTorch version and as one variant
-of the Hopper kernel ``csrc/dcn_ablate.cu``, which keeps ``dcn_fwd``'s tile
-and gather so that its time is a part of ``dcn_fwd``'s.
+of the Hopper kernel ``csrc/dcn_ablate.cu``, which keeps one part of
+``dcn_fwd`` as it runs on the card (its halo staging, its sampling producer,
+or its own stage pipeline of split-bf16 products on the tensor cores,
+``csrc/fwd_stages.cuh``, with another A-tile producer) so that its time is
+a part of ``dcn_fwd``'s.
 
 With x (B,H,W,C) NHWC float32 and zero padding outside the map, R the offset
 clamp, o_k and m_k the tap's offset and mask (layouts as ``ops/dcn.py``) and
@@ -31,13 +34,20 @@ import torch
 import torch.nn.functional as F
 
 from .dcn import bilinear_columns, check_dcn_inputs
-from .dcn_cuda import _check_device, _check_kernel_operands, _launch
+from .dcn_cuda import (FWD_PARTS, _check_device, _check_kernel_operands, _launch, fwd_image_numel,
+                       fwd_tile_n)
 
 VARIANTS = ("dma", "window", "aligned", "matmul", "nomap", "nobcast")
 _CODES = {v: i for i, v in enumerate(VARIANTS)}   # the kernel's Variant enum
 C_OUT = ("dma", "window", "aligned")              # out channels C, not Co
-_GUARD = 8                                        # the kernels' guard band
+GEMM = ("matmul", "nomap", "nobcast")             # the variants with dcn_fwd's products
+# the TPU tools' guard band: 8 rows above and below a staged tile, which
+# P = R + 1 must fit, so R <= 7 (the kernel takes the same range)
+_GUARD = 8
 R_MAX = _GUARD - 1
+# the variants whose A tile comes from a halo of x in shared memory: they take
+# 64 output channels a block (csrc/dcn_ablate.cu gemm_window_kernel)
+WINDOW = ("nomap", "nobcast")
 
 
 def pick_tile_h(H: int) -> int:
@@ -46,6 +56,13 @@ def pick_tile_h(H: int) -> int:
     if H <= 32:
         return 16 * max(1, -(-H // 16))
     return 16
+
+
+def ablate_tile_n(variant: str, Co: int) -> int:
+    """Output channels a block of ``variant``'s products takes: dcn_fwd's
+    tile (``fwd_tile_n``) for matmul, 64 for nomap and nobcast, whose halo
+    of x does not fit beside dcn_fwd's 128-channel stages."""
+    return 64 if variant in WINDOW else fwd_tile_n(Co)
 
 
 def _hat(t: torch.Tensor) -> torch.Tensor:
@@ -96,8 +113,8 @@ def dcn_ablate_reference(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tens
     R = int(max_offset)
     B, H, W, C = x.shape
     if variant == "dma":
-        # the kernel's staging: x in a halo of guard rows and P columns, then
-        # its core
+        # the TPU kernel's staging: x in a halo of guard rows and P columns,
+        # then its core
         P = R + 1
         return F.pad(x, (0, 0, P, P, _GUARD, _GUARD))[:, _GUARD:_GUARD + H, P:P + W].contiguous()
     if variant in ("window", "aligned"):
@@ -151,9 +168,14 @@ def dcn_ablate(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     new = dict(device=x.device, dtype=torch.float32)
     tilemax = (torch.empty((B * ntiles * 9, 2, 2 * R + 1), **new) if variant == "nobcast"
                else None)
+    # scratch for W's split and layout as dcn_fwd's, which the kernel writes first
+    bn = ablate_tile_n(variant, Co)
+    w_img = (torch.empty(fwd_image_numel(C, Co, bn), device=x.device, dtype=torch.bfloat16)
+             if variant in GEMM else None)
     out = torch.empty((B, H, W, C if variant in C_OUT else Co), **new)
     _launch("dcn_ablate", x, _CODES[variant], x.data_ptr(), offset.data_ptr(), mask.data_ptr(),
-            weight.data_ptr(), None if tilemax is None else tilemax.data_ptr(), out.data_ptr(),
+            weight.data_ptr(), None if w_img is None else w_img.data_ptr(),
+            None if tilemax is None else tilemax.data_ptr(), out.data_ptr(), FWD_PARTS, bn,
             B, H, W, C, Co, tile_h, ntiles, R)
     dcn_ablate.launches[variant] += 1
     return out

@@ -89,21 +89,26 @@ _MAX_MO_CO = 256
 # bf16 parts of z and W in dcn_bwd_dx (csrc/dcn_bwd_dx.cu's PARTS, which its
 # entry checks)
 DX_PARTS = 2
-# the largest clamp reach ceil(R) whose halo of g, floors and stages fit a
-# dcn_bwd_dx block's shared memory (csrc/dcn_bwd_dx.cu's halo_channels,
-# which its entry checks)
-DX_MAX_REACH = 4
+# a block's dynamic shared memory on sm_90 (the kernels' kSmemLimit)
+SMEM_LIMIT = 232448
+# dcn_bwd_dx's output tile (8 x 16 pixels), threads, and the largest clamp
+# reach whose floors of all 9 taps it stages at once (csrc/dcn_bwd_dx.cu's
+# TH, TW, THREADS, kNarrowReach and kMaxCand)
+_DX_TILE = (8, 16)
+_DX_THREADS = 512
+_DX_NARROW_REACH = 4
+_DX_MAX_CAND = 96
 
 _vp, _i32, _f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     "dcn_fwd": [_vp, _i32, _i32, _i32, _vp, _vp, _vp, _vp, _i32, _i32, _vp, _vp, _vp, _vp,
                 _i32, _i32, _i32, _i32, _i32, _f32, _vp],
-    "dcn_bwd_dx": [_i32, _vp, _vp, _vp, _vp, _i32, _i32, _vp, _vp, _i32, _i32, _i32, _i32, _i32,
-                   _f32, _i32, _vp],
+    "dcn_bwd_dx": [_i32, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _vp, _vp, _i32, _i32, _i32, _i32,
+                   _i32, _f32, _i32, _vp],
     "dcn_bwd_dwmo": [_vp, _i32, _i32, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i32,
                      _i32, _i32, _i32, _i32, _i32, _i32, _f32, _vp],
-    "dcn_ablate": [_i32, _vp, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32, _i32,
-                   _i32, _vp],
+    "dcn_ablate": [_i32, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32,
+                   _i32, _i32, _i32, _i32, _vp],
     "relayout": [_vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _vp],
 }
 
@@ -272,6 +277,54 @@ def dx_image_numel(C: int, Co: int) -> int:
     return 9 * math.ceil(Co / _CHUNK) * math.ceil(C / bn) * DX_PARTS * bn * _CHUNK
 
 
+def _dx_layout_bytes(reach: int, hc: int, bn: int) -> Tuple[int, int]:
+    """(bytes, pixels) of a dcn_bwd_dx block's shared memory and halo at
+    clamp reach R', hc halo channels and bn input channels: the mirror of
+    ``csrc/dcn_bwd_dx.cu``'s Layout.  Two A stages and W's chunk (bf16
+    parts), g's halo (f32), the floors (a u16 code and three f32 a halo pixel
+    and tap: all 9 taps at R' <= 4, two beyond), the candidate table, the hit
+    lists and the mbarrier, plus 1024 bytes of alignment."""
+    th, tw = _DX_TILE
+    P = reach + 1
+    nh = (th + 2 * P) * (tw + 2 * P)
+    taps = 9 if reach <= _DX_NARROW_REACH else 2
+    ncand = _DX_MAX_CAND if reach <= _DX_NARROW_REACH else -(-(2 * reach + 1) ** 2 // 32) * 32
+    a_bytes = 128 * 128                               # one bf16 part of a 128 x 64 A tile
+    nbytes = (2 * DX_PARTS * a_bytes + DX_PARTS * bn * 128 + nh * hc * 4
+              + -(-taps * nh * 2 // 16) * 16 + 3 * taps * nh * 4 + ncand * 4
+              + _DX_THREADS // 8 * 32 * 4 + 8 + 1024)
+    return nbytes, nh
+
+
+def dx_halo_channels(reach: int) -> int:
+    """g's channels a dcn_bwd_dx block stages at once at clamp reach R'
+    (``csrc/dcn_bwd_dx.cu``'s halo_channels): at R' <= 4, 64 where that fits
+    at either tile of C (and the raw offsets and masks fit the A stages), else
+    32; beyond, 16; 0 where nothing fits."""
+    if reach < 0:
+        return 0
+    if reach > _DX_NARROW_REACH:
+        return 16 if _dx_layout_bytes(reach, 16, 128)[0] <= SMEM_LIMIT else 0
+    for hc in (64, 32):
+        nbytes, nh = _dx_layout_bytes(reach, hc, 128)
+        if nbytes <= SMEM_LIMIT and nh * 27 * 4 <= 2 * DX_PARTS * 128 * 128:
+            return hc
+    return 0
+
+
+def dx_smem_bytes(reach: int, C: int) -> int:
+    """The dynamic shared memory of a dcn_bwd_dx block at clamp reach R' and
+    C input channels, as the kernel's entry computes it (and checks against
+    this count); 0 where the reach does not fit."""
+    hc = dx_halo_channels(reach)
+    return _dx_layout_bytes(reach, hc, dx_tile_c(C))[0] if hc else 0
+
+
+# the largest clamp reach ceil(R) whose halo of g, floors and stages fit a
+# dcn_bwd_dx block's shared memory (11: g in 16-channel slices)
+DX_MAX_REACH = max(r for r in range(64) if dx_halo_channels(r))
+
+
 def fwd_weight_image(weight: torch.Tensor, bn: int, bf16_math: bool = False) -> torch.Tensor:
     """W (3,3,C,Co) as dcn_fwd's B operand: (9, ceil(C/64), Co_pad/bn, 3, bn,
     64) bf16, each (tap, channel chunk, output-channel tile) one bulk copy of
@@ -360,7 +413,7 @@ def dcn_bwd_dx(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     that land on it from a halo of g in shared memory and contracts W_k^T on
     the tensor cores; every sum runs in a fixed order, so two launches are
     bit-equal.  It raises ValueError for an R whose halo does not fit a
-    block's shared memory (R > DX_MAX_REACH = 4).
+    block's shared memory (ceil(R) > DX_MAX_REACH = 11).
     ``dcn_bwd_dx.launches`` (``.bf16_math_launches`` under
     ``compute_dtype=bfloat16``) counts kernel launches.
     """
@@ -376,7 +429,7 @@ def dcn_bwd_dx(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     _check_kernel_operands("dcn_bwd_dx", B, H, W, C, Co, offset=offset, mask=mask,
                            weight=weight, g=g)
     reach = math.ceil(max_offset)
-    if reach > DX_MAX_REACH:
+    if not 0 <= reach <= DX_MAX_REACH:
         raise ValueError(f"dcn_bwd_dx: max_offset R = {max_offset} does not fit the kernel: a "
                          f"block's halo of g, its floors and stages outgrow its shared memory "
                          f"(R <= {DX_MAX_REACH} fits)")
@@ -384,8 +437,8 @@ def dcn_bwd_dx(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     dx = torch.empty((B, H, W, C), device=x.device, dtype=torch.float32)
     w_img = torch.empty(dx_image_numel(C, Co), device=x.device, dtype=torch.bfloat16)
     _launch("dcn_bwd_dx", x, int(bf16_math), offset.data_ptr(), mask.data_ptr(),
-            weight.data_ptr(), w_img.data_ptr(), DX_PARTS, dx_tile_c(C), g.data_ptr(),
-            dx.data_ptr(), B, H, W, C, Co, float(max_offset), reach)
+            weight.data_ptr(), w_img.data_ptr(), DX_PARTS, dx_tile_c(C), dx_smem_bytes(reach, C),
+            g.data_ptr(), dx.data_ptr(), B, H, W, C, Co, float(max_offset), reach)
     _count(dcn_bwd_dx, bf16_math)
     return dx
 

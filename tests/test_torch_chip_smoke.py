@@ -99,11 +99,14 @@ def test_bf16_math_neck_bounds_count_one_pass(kind, want_ms):
 @pytest.mark.parametrize("kind", ["nomap", "nobcast"])
 def test_ablation_counts_the_separable_window(kind):
     """nomap's box sum is separable and taken once per (pixel, channel);
-    nobcast's tile-constant hat weights take a row and a column pass."""
+    nobcast's tile-constant hat weights take a row and a column pass; both
+    f32.  Their contraction runs on the tensor cores as dcn_fwd's, at its
+    six bf16 passes."""
     smoke = load_smoke()
     H, W, C, Co, R = 24, 80, 256, 128, smoke.R
     n = smoke.BATCH * H * W
     gemm = 2 * 9 * n * C * Co
     window = (4 * R * n * C if kind == "nomap"
               else 4 * (2 * R + 1) * 9 * n * C + 11 * (2 * R + 1) * 9 * n)
-    assert smoke.dcn_work(kind, H, W, C, Co, 4)[0] == gemm + window
+    f32, _, tc = smoke.dcn_work(kind, H, W, C, Co, 4)
+    assert (f32, tc) == (window, smoke.TC_PASSES["fwd"] * gemm)

@@ -193,9 +193,10 @@ def test_dx_is_deterministic(device, shape, transfer, compute_dtype):
 
 
 # C off the kernel's 128-channel tile (72, 136) and maps smaller than its
-# 8 x 16 pixel tile, at every R its halo takes
+# 8 x 16 pixel tile, at every R of the per-stage clamp (8, 4, 2, 2) and R = 3
+# and 5 beside them
 @pytest.mark.parametrize("shape", [(2, 9, 7, 72, 40), (1, 5, 3, 136, 8)])
-@pytest.mark.parametrize("R", [1, 2, 3, 4])
+@pytest.mark.parametrize("R", [1, 2, 3, 4, 5, 8])
 def test_dx_ragged_channel_tiles(device, shape, R):
     x, off, mask, w, _ = make_inputs(device, *shape, seed=7, bias=False)
     g = torch.randn(*shape[:3], shape[4], device=device,
@@ -206,11 +207,40 @@ def test_dx_ragged_channel_tiles(device, shape, R):
     assert (dx - ref).abs().max().item() <= ATOL
 
 
+# ida_0's two shapes at batch 2, where the per-stage clamp (8, 4, 2, 2) puts
+# R = 8, and a map smaller than the halo
+@pytest.mark.parametrize("shape", [(2, 24, 80, 256, 256), (2, 12, 40, 512, 256),
+                                   (1, 13, 20, 24, 16)])
 @pytest.mark.parametrize("R", [5, 8])
-def test_dx_rejects_a_halo_that_does_not_fit(device, R):
-    """An R whose halo of g does not fit a block's shared memory (R > 4)
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
+def test_dx_takes_the_per_stage_clamp(device, shape, R, compute_dtype):
+    """Beyond R' = 4 the kernel stages g in 16-channel slices and the floors
+    per tap: against the plain backward in the same math (offsets of 1.5 R
+    standard deviation, so some clip), and bit-equal over two launches."""
+    x, off, mask, w, _ = make_inputs(device, *shape, seed=9, bias=False)
+    off = off * R
+    g = torch.randn(*shape[:3], shape[4], device=device,
+                    generator=torch.Generator(device=device).manual_seed(10))
+    before = dcn_cuda.dcn_bwd_dx.launches, dcn_cuda.dcn_bwd_dx.bf16_math_launches
+    kw = dict(max_offset=R, compute_dtype=compute_dtype)
+    first = dcn_cuda.dcn_bwd_dx(x, off, mask, w, g, **kw)
+    second = dcn_cuda.dcn_bwd_dx(x, off, mask, w, g, **kw)
+    torch.cuda.synchronize()
+    bf16 = compute_dtype == torch.bfloat16
+    assert (dcn_cuda.dcn_bwd_dx.launches, dcn_cuda.dcn_bwd_dx.bf16_math_launches) == (
+        before[0] + 2 * (not bf16), before[1] + 2 * bf16)
+    assert torch.equal(first, second)
+    ref = modulated_deform_conv_backward(x, off, mask, w, g, wrt=("x",), **kw)[0]
+    # bf16 math: as tests/test_torch_diag_cuda.py's BF16_RTOL
+    tol = 1e-4 * ref.abs().max().item() if bf16 else ATOL
+    assert (first - ref).abs().max().item() <= tol
+
+
+def test_dx_rejects_a_halo_that_does_not_fit(device):
+    """An R whose halo of g does not fit a block's shared memory (R > 11)
     raises, naming R, and launches nothing: there is no fallback to the
     plain op."""
+    R = dcn_cuda.DX_MAX_REACH + 1
     x, off, mask, w, _ = make_inputs(device, 1, 16, 32, 8, 8, bias=False)
     g = torch.randn(1, 16, 32, 8, device=device)
     before = dcn_cuda.dcn_bwd_dx.launches

@@ -37,9 +37,12 @@ def rel_err(got, ref):
 
 
 # H = 13: one nobcast row tile of 16 with 3 padded rows; H = 40: three tiles,
-# the last with 8 padded rows; (9, 7, 40, 72): C and Co off every tile
+# the last with 8 padded rows; (9, 7, 40, 72): C and Co off every tile;
+# (3, 11, 37, 20, 24): no dimension a multiple of the kernels' tiles (8 x 16
+# pixels, 64 channels, 8-channel groups); (1, 9, 13, 6, 10): C not a
+# multiple of 4 (dma copies element by element)
 @pytest.mark.parametrize("shape", [(1, 16, 16, 8, 8), (2, 13, 20, 24, 16), (1, 40, 16, 8, 8),
-                                   (2, 9, 7, 40, 72)])
+                                   (2, 9, 7, 40, 72), (3, 11, 37, 20, 24), (1, 9, 13, 6, 10)])
 @pytest.mark.parametrize("R", [1, 2])
 @pytest.mark.parametrize("variant", VARIANTS)
 def test_ablate_kernel_matches_plain(device, variant, shape, R):
@@ -50,6 +53,27 @@ def test_ablate_kernel_matches_plain(device, variant, shape, R):
     assert dcn_ablate.launches == {**before, variant: before[variant] + 1}
     ref = dcn_ablate_reference(x, off, mask, w, variant=variant, max_offset=R)
     assert y.shape == ref.shape
+    if variant == "dma":
+        assert torch.equal(y, x)
+    else:
+        assert rel_err(y, ref) <= ABLATE_RTOL
+
+
+# R = 3 and 7 stage x's halo for nomap and nobcast in 32 and 16 channels; at
+# Co = 128 matmul takes dcn_fwd's 128-channel tile, nomap and nobcast two
+# tiles of 64; a kernel_diag shape at batch 2
+@pytest.mark.parametrize("shape", [(2, 19, 35, 72, 128), (2, 24, 80, 256, 128)])
+@pytest.mark.parametrize("R", [0, 3, 7])
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_ablate_kernel_wide_reach(device, variant, shape, R):
+    """Every variant against its plain version where the halo of x takes
+    fewer channels, and bit-equal over two launches."""
+    x, off, mask, w, _ = make_inputs(device, *shape, seed=11, bias=False)
+    y = dcn_ablate(x, off, mask, w, variant=variant, max_offset=R)
+    again = dcn_ablate(x, off, mask, w, variant=variant, max_offset=R)
+    torch.cuda.synchronize()
+    assert torch.equal(y, again)
+    ref = dcn_ablate_reference(x, off, mask, w, variant=variant, max_offset=R)
     if variant == "dma":
         assert torch.equal(y, x)
     else:

@@ -23,7 +23,10 @@ import monoflex_tpu.ops.dcn_pallas_v3 as DP3
 from monoflex_tpu_torch.ops import dcn_cuda
 from monoflex_tpu_torch.ops.dcn import (modulated_deform_conv_backward,
                                         modulated_deform_conv_dx_mirrored)
-from monoflex_tpu_torch.ops.dcn_cuda import dx_tile_c, dx_weight_image, split_bf16, swizzle_128b
+from monoflex_tpu_torch.ops.dcn_cuda import (DX_MAX_REACH, SMEM_LIMIT, dx_halo_channels,
+                                             dx_smem_bytes, dx_tile_c, dx_weight_image,
+                                             split_bf16, swizzle_128b)
+from monoflex_tpu_torch.tools.kernel_bench import MODEL_SHAPES
 from test_torch_dcn import interpret_mode, make_inputs  # noqa: F401 (fixture)
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -48,10 +51,22 @@ def dx_inputs(seed, B, H, W, C, Co, R):
     return x, off, mask, w, g
 
 
+def wide_inputs(seed, B, H, W, C, Co, R):
+    """make_inputs' operands with g, and offsets spread over (-R, R), so that
+    sources up to R pixels away land on a pixel, each at least 0.05 from an
+    integer (ROADMAP C1)."""
+    x, _, mask, w, _ = make_inputs(seed=seed, B=B, H=H, W=W, C=C, Co=Co)
+    rng = np.random.RandomState(seed + 60)
+    off = rng.uniform(-R + 0.05, R - 0.05, size=(B, H, W, 18)).astype(np.float32)
+    off[np.abs(off - np.round(off)) < 0.05] += 0.1
+    g = rng.randn(B, H, W, Co).astype(np.float32)
+    return x, off, mask, w, g
+
+
 # odd H and W, C and Co off multiples of 64, every pixel of a small map near
-# a border; R up to 4, the most the kernel's halo takes
+# a border; R up to 8, the first stage's reach under the per-stage clamp
 @pytest.mark.parametrize("shape", [(1, 9, 13, 40, 72), (2, 7, 5, 8, 16), (1, 11, 21, 24, 8)])
-@pytest.mark.parametrize("R", [1, 2, 4])
+@pytest.mark.parametrize("R", [1, 2, 4, 8])
 @pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
 def test_mirrored_dx_equals_plain_backward(shape, R, compute_dtype):
     x, off, mask, w, g = map(torch.from_numpy, dx_inputs(0, *shape, R))
@@ -72,9 +87,11 @@ def test_bf16_math_rounds_the_gather():
     assert (bf16 - f32).abs().max().item() > 100 * RTOL * f32.abs().max().item()
 
 
-@pytest.mark.parametrize("R", [1, 2])
+# R = 5 and 8: the reaches of the wide layout (g in 16-channel slices, the
+# floors per tap), 8 the first stage's of TPU.DCN_MAX_OFFSET_PER_STAGE
+@pytest.mark.parametrize("R", [1, 2, 5, 8])
 def test_mirrored_dx_matches_dx5(interpret_mode, R):
-    arrays = dx_inputs(2, 1, 9, 13, 40, 24, R)
+    arrays = (dx_inputs if R <= 2 else wide_inputs)(2, 1, 9, 13, 40, 24, R)
     ref = np.asarray(DP3.dcn_pallas_v5_bwd_dx(*map(jnp.asarray, arrays), max_offset=R))
     _, off, mask, w, g = map(torch.from_numpy, arrays)
     got = modulated_deform_conv_dx_mirrored(off, mask, w, g, max_offset=R).numpy()
@@ -142,20 +159,43 @@ def test_dx_split_passes_meet_the_backward_tolerance(mkn):
 
 
 def test_cpu_dx_takes_any_r():
-    """The halo limit (R <= 4) is the kernel's: on CPU tensors dcn_bwd_dx is
+    """The halo limit (R <= 11) is the kernel's: on CPU tensors dcn_bwd_dx is
     the plain backward at any R."""
-    x, off, mask, w, g = map(torch.from_numpy, dx_inputs(3, 1, 9, 13, 8, 8, 5))
-    got = dcn_cuda.dcn_bwd_dx(x, off, mask, w, g, max_offset=5)
-    ref = modulated_deform_conv_backward(x, off, mask, w, g, max_offset=5, wrt=("x",))[0]
+    R = DX_MAX_REACH + 1
+    x, off, mask, w, g = map(torch.from_numpy, dx_inputs(3, 1, 9, 13, 8, 8, R))
+    got = dcn_cuda.dcn_bwd_dx(x, off, mask, w, g, max_offset=R)
+    ref = modulated_deform_conv_backward(x, off, mask, w, g, max_offset=R, wrt=("x",))[0]
     assert torch.equal(got, ref)
 
 
-def test_max_reach_is_the_kernels():
-    """The wrapper's limit DX_MAX_REACH is the reach whose (2R'+1)^2
-    candidate sources fill the kernel's candidate table (kMaxCand) and the
-    next reach's do not, so the wrapper raises where the kernel's entry
-    would refuse, and nowhere else."""
+def kernel_constant(name):
     src = (dcn_cuda._PKG / "csrc" / "dcn_bwd_dx.cu").read_text()
-    max_cand = int(src.split("constexpr int kMaxCand = ")[1].split(";")[0])
-    r = dcn_cuda.DX_MAX_REACH
-    assert (2 * r + 1) ** 2 <= max_cand < (2 * r + 3) ** 2
+    return int(src.split(f"constexpr int {name} = ")[1].split(";")[0])
+
+
+def test_max_reach_is_the_kernels():
+    """The wrapper's limit DX_MAX_REACH is the largest reach whose block
+    fits a block's shared memory in the mirror of the kernel's layout, built
+    on the kernel's own constants, and the next reach's does not: the
+    wrapper raises where the kernel's entry would refuse, and nowhere else."""
+    assert (kernel_constant("kSmemLimit"), kernel_constant("kNarrowReach"),
+            kernel_constant("kMaxCand"), kernel_constant("PARTS"), kernel_constant("THREADS"),
+            (kernel_constant("TH"), kernel_constant("TW"))) == (
+        SMEM_LIMIT, dcn_cuda._DX_NARROW_REACH, dcn_cuda._DX_MAX_CAND, dcn_cuda.DX_PARTS,
+        dcn_cuda._DX_THREADS, dcn_cuda._DX_TILE)
+    r = DX_MAX_REACH
+    assert r >= 8 and dx_halo_channels(r) and not dx_halo_channels(r + 1)
+    assert (2 * dcn_cuda._DX_NARROW_REACH + 1) ** 2 <= dcn_cuda._DX_MAX_CAND
+
+
+# the (C, Co) of the neck's DCN layers (tools/kernel_bench.py::MODEL_SHAPES)
+@pytest.mark.parametrize("C,Co", [shape[2:] for shape in MODEL_SHAPES])
+def test_dx_layout_fits_every_reach(C, Co):
+    """Every reach from 1 to DX_MAX_REACH lays a block out within its shared
+    memory at the neck's channel counts: 64 halo channels up to R' = 2, 32
+    at 3 and 4, 16 beyond (the floors then per tap)."""
+    for reach in range(1, DX_MAX_REACH + 1):
+        nbytes = dx_smem_bytes(reach, C)
+        assert 0 < nbytes <= SMEM_LIMIT, (reach, nbytes)
+        assert dx_halo_channels(reach) == (64 if reach <= 2 else 32 if reach <= 4 else 16)
+    assert dx_smem_bytes(DX_MAX_REACH + 1, C) == 0
