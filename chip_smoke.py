@@ -60,7 +60,22 @@ Phases, one line each; any failure exits non-zero and prints no result:
              variant, transpose_ablate with every variant.  Fails on a
              non-zero exit, an error record, a non-finite time or a parity
              error above tolerance.
-  9. report  the kernels' JSON line (with each kernel's bound on the card),
+  9. trainer the training entry point, python -m monoflex_tpu_torch.cli, as
+             processes on the card: runs/monoflex_ema.yaml at 384x1280,
+             batch 8, on the phase's own 16-frame 1242x375 tree (splits
+             trainval): 20 iterations with a checkpoint at 10, an eval of
+             the EMA weights at 20 and --profile 5; then --eval --ckpt
+             model_final_ema; then a resume to 30 from last_checkpoint under
+             --num_processes 1 --process_id 0 --coordinator_address, so NCCL
+             and DistributedDataParallel run at world size 1 (these two
+             without cuDNN's autotune: checked, not timed).  Each process
+             writes its launch counts (MONOFLEX_TORCH_LAUNCH_LOG): 16 of each
+             DCN kernel per iteration and per eval forward.  Checks: 11
+             finite terms, no skip (the optimizer's count equals the
+             iteration), "resumed from iteration 20" with count 20, 16 txts
+             from the eval.  Prints the loop's img/s, its time and data
+             meters and the device idle share of the profile window.
+ 10. report  the kernels' JSON line (with each kernel's bound on the card),
              the card line, and last the result line
              {"ok": true, "device": {...}}.
 """
@@ -74,6 +89,7 @@ import math
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -204,6 +220,10 @@ FWD_ABLATE_VARIANTS = ("full", "nomap", "nobcast", "hoistwx", "fori", "foribf16"
                        "packedh3bf16")
 TRANSPOSE_VARIANTS = ("xla", "dot", "pallas", "pallasT")
 TOOL_ITERS = 3
+# the trainer phase: iterations of the first run, its checkpoint interval,
+# the resumed run's end, and the steps the first run profiles
+TRAINER_ITERS, TRAINER_SAVE, TRAINER_RESUME = 20, 10, 30
+TRAINER_PROFILE = 5
 # published peaks of one H100 SXM (NVIDIA's data sheet, dense): f32 outside
 # the tensor cores, the type of the kernels' arithmetic; bf16 on the tensor
 # cores, the type of the bf16 window math's product (bf16 x bf16 summed in
@@ -1123,19 +1143,25 @@ def check_bf16_math() -> dict:
     return out
 
 
+def run_module(module: str, args, env: dict, log: str):
+    """``python -m <module> *args`` in its own process, which writes its
+    kernels' launch counts to ``log`` at its end: (the process, the counts)."""
+    proc = subprocess.run([sys.executable, "-m", module, *args], cwd=ROOT,
+                          env={**env, LAUNCH_LOG_ENV: log}, capture_output=True, text=True,
+                          timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"{module} exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    with open(log) as f:
+        return proc, json.load(f)
+
+
 def run_tool(name: str, args, tmp: str):
     """``python -m monoflex_tpu_torch.tools.<name> *args`` in its own
     process: its stdout lines and the launch counts it wrote at its end."""
-    log = os.path.join(tmp, f"{name}.launches.json")
-    env = {**os.environ, LAUNCH_LOG_ENV: log}
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", f"monoflex_tpu_torch.tools.{name}", *args],
-                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise AssertionError(f"{name} exited {proc.returncode}:\n{proc.stdout[-2000:]}\n"
-                             f"{proc.stderr[-3000:]}")
-    with open(log) as f:
-        launches = json.load(f)
+    proc, launches = run_module(f"monoflex_tpu_torch.tools.{name}", args, dict(os.environ),
+                                os.path.join(tmp, f"{name}.launches.json"))
     lines = proc.stdout.splitlines()
     # tools/trace_time.py takes a trace again when the profiler dropped records
     retraced = proc.stderr.count("lost device records")
@@ -1226,6 +1252,180 @@ def run_diag() -> dict:
     phase("diag", "launches in the tools' run: "
                   + " ".join(f"{k}={launches[k]}" for k in recs))
     return {k: {**rec, "launches": launches[k]} for k, rec in recs.items()}
+
+
+def trainer_opts(max_iter: int, batch: int = BATCH):
+    """KEY VALUE opts of the trainer phase's CLI runs on its trainval tree."""
+    return ["DATASETS.TRAIN_SPLIT", "trainval", "DATASETS.TEST_SPLIT", "trainval",
+            "SOLVER.IMS_PER_BATCH", str(batch), "SOLVER.EVAL_AND_SAVE_EPOCH", "False",
+            "SOLVER.MAX_ITERATION", str(max_iter),
+            "SOLVER.SAVE_CHECKPOINT_INTERVAL", str(TRAINER_SAVE),
+            "SOLVER.EVAL_INTERVAL", str(TRAINER_ITERS), "TEST.IMS_PER_BATCH", str(batch),
+            "SEED", "0"]
+
+
+def run_cli(args, env: dict, tmp: str, label: str):
+    """``python -m monoflex_tpu_torch.cli *args`` in its own process: its
+    stdout and the launch counts it wrote at its end."""
+    t0 = time.perf_counter()
+    proc, launches = run_module("monoflex_tpu_torch.cli", args, env,
+                                os.path.join(tmp, f"{label}.launches.json"))
+    phase("trainer", f"cli ({label}): exit 0 in {time.perf_counter() - t0:.2f} s")
+    return proc.stdout, launches
+
+
+def loop_meters(log: str, max_iter: int) -> dict:
+    """The time and data meters (s) of the loop's log points at iterations
+    max_iter / 2 and max_iter, from its log lines (median and global
+    average of the values at the log points): the time per iteration of
+    each 10-iteration window and the data time of the logged iteration;
+    and the second window's time without the checkpoint saved at its start."""
+    points = {}
+    for m in re.finditer(r"iter (\d+)/(\d+) .*?time: (\S+) \((\S+)\)  data: (\S+) \((\S+)\)",
+                         log):
+        if int(m.group(2)) == max_iter:
+            points[int(m.group(1))] = [float(m.group(k)) for k in range(3, 7)]
+    half = max_iter // 2
+    if sorted(points) != [half, max_iter]:
+        raise AssertionError(f"log points {sorted(points)}, want {[half, max_iter]}")
+    # two values at the second point: its global average is their mean
+    first_time, first_data = points[half][0], points[half][2]
+    m = re.search(rf"saved model_checkpoint_{half} in (\S+) s", log)
+    if m is None:
+        raise AssertionError(f"no save at iteration {half} in the log")
+    second = 2 * points[max_iter][1] - first_time
+    return {"time_first": first_time, "time_second": second,
+            "time_second_no_save": second - float(m.group(1)) / (max_iter - half),
+            "save_s": float(m.group(1)),
+            "data_first": first_data, "data_second": 2 * points[max_iter][3] - first_data}
+
+
+def profile_window(log: str):
+    """The profiled window's wall and device busy ms and idle share, from
+    the loop's log line; None where the profiler kept no device record."""
+    if re.search(r"profiler trace of \d+ steps written to \S+; wall \S+ ms, the trace holds "
+                 r"no device records", log):
+        return None
+    m = re.search(r"profiler trace of (\d+) steps written to \S+; wall (\S+) ms, device busy "
+                  r"(\S+) ms, idle share (\S+)", log)
+    if m is None:
+        raise AssertionError("no profile line in the log")
+    return {"steps": int(m.group(1)), "wall_ms": float(m.group(2)),
+            "busy_ms": float(m.group(3)), "idle_share": float(m.group(4))}
+
+
+def check_trainer_launches(launches: dict, iters: int, forwards: int, label: str) -> None:
+    """16 launches of each DCN kernel per train iteration, and of dcn_fwd
+    (fused or not) per eval forward."""
+    fwd = launches["dcn_fwd"] + launches["dcn_fwd_bn_relu"]
+    got = (fwd, launches["dcn_bwd_dx"], launches["dcn_bwd_dwmo"])
+    want = (16 * (iters + forwards), 16 * iters, 16 * iters)
+    if got != want:
+        raise AssertionError(f"({label}) launches fwd/dx/dwmo {got}, want {want} for {iters} "
+                             f"iterations and {forwards} eval forwards")
+
+
+def last_terms(out_dir: str, names) -> dict:
+    """The last logged train record, checked: every loss term finite, no
+    skip at the log point."""
+    with open(os.path.join(out_dir, "tensorboard", "scalars.jsonl")) as f:
+        rec = [json.loads(line) for line in f if '"train/' in line][-1]
+    bad = [k for k in names if not finite(rec.get(f"train/{k}"))]
+    if len(names) != 11 or bad or rec["train/skipped"] != 0.0:
+        raise AssertionError(f"step {rec['step']}: non-finite terms {bad}, skipped "
+                             f"{rec.get('train/skipped')}")
+    return rec
+
+
+def run_trainer(card: str) -> dict:
+    """The trainer phase; returns the kernels' launches over its three runs."""
+    forwards = math.ceil(EVAL_FRAMES / BATCH)
+    cfg = get_cfg_defaults()
+    cfg.merge_from_file(os.path.join(ROOT, "runs", "monoflex_ema.yaml"))
+    names = cfg.MODEL.HEAD.LOSS_NAMES
+    with tempfile.TemporaryDirectory(prefix="monoflex_trainer_") as tmp:
+        t0 = time.perf_counter()
+        make_synthetic_kitti(os.path.join(tmp, "kitti", "training"),
+                             n_random_frames=EVAL_FRAMES - 3, render=True)
+        out = os.path.join(tmp, "run")
+        env = {**os.environ, "MONOFLEX_DATA_DIR": tmp}
+        env.pop("MONOFLEX_PLATFORM", None)
+        base = ["--config", os.path.join(ROOT, "runs", "monoflex_ema.yaml"), "--output", out]
+        phase("trainer", f"tree of {EVAL_FRAMES} frames (1242x375, trainval) in "
+                         f"{time.perf_counter() - t0:.2f} s")
+
+        log, train = run_cli([*base, "--profile", str(TRAINER_PROFILE),
+                              *trainer_opts(TRAINER_ITERS)], env, tmp, "train")
+        check_trainer_launches(train, TRAINER_ITERS, forwards, "train")
+        rec = last_terms(out, names)
+        ckpt = os.path.join(out, "ckpt")
+        names_on_disk = sorted(os.listdir(ckpt))
+        want = sorted(["last_checkpoint", f"model_checkpoint_{TRAINER_SAVE}", "model_final",
+                       "model_final_ema", "model_moderate_best_soft"])
+        if names_on_disk != want:
+            raise AssertionError(f"checkpoints {names_on_disk}, want {want}")
+        meters = loop_meters(log, TRAINER_ITERS)
+        prof = profile_window(log)
+        phase("trainer", f"train {TRAINER_ITERS} iterations at batch {BATCH}, 384x1280 on "
+                         f"{card}: iterations {TRAINER_ITERS // 2 + 1}-{TRAINER_ITERS} (after the "
+                         f"checkpoint at {TRAINER_SAVE}) {BATCH / meters['time_second']:.2f} "
+                         f"img/s, time {meters['time_second'] * 1e3:.1f} ms/iteration; "
+                         f"without the save ({meters['save_s']:.3f} s) "
+                         f"{BATCH / meters['time_second_no_save']:.2f} img/s, "
+                         f"{meters['time_second_no_save'] * 1e3:.1f} ms/iteration "
+                         f"(1-{TRAINER_ITERS // 2}, with the first and the profile: "
+                         f"{meters['time_first'] * 1e3:.1f}), data "
+                         f"{meters['data_second'] * 1e3:.1f} ms at iteration {TRAINER_ITERS} "
+                         f"({meters['data_first'] * 1e3:.1f} at {TRAINER_ITERS // 2}); "
+                         f"launches " + " ".join(f"{k}={train[k]}" for k in
+                                                  ("dcn_fwd", "dcn_bwd_dx", "dcn_bwd_dwmo"))
+                         + f"; 11 terms finite at {rec['step']}, total_loss "
+                         f"{rec['train/total_loss']:.4f}; checkpoints {', '.join(names_on_disk)}")
+        phase("trainer", f"profile of iterations 2-{TRAINER_PROFILE + 1} on {card}: " + (
+            "not measured (the profiler kept no device record)" if prof is None else
+            f"wall {prof['wall_ms']:.2f} ms, device busy {prof['busy_ms']:.2f} ms, idle share "
+            f"{prof['idle_share']:.4f} ({prof['wall_ms'] / prof['steps']:.2f} ms/iteration)"))
+
+        # the eval and the resumed run are checked, not timed: without
+        # cuDNN's autotune a process reaches its first step in seconds, not
+        # in the half minute the autotune of every convolution takes
+        untuned = ["CUDNN_BENCHMARK", "False"]
+        log, evaluation = run_cli([*base, "--eval", "--ckpt",
+                                   os.path.join(ckpt, "model_final_ema"),
+                                   *trainer_opts(TRAINER_ITERS), *untuned], env, tmp, "eval")
+        check_trainer_launches(evaluation, 0, forwards, "eval")
+        txts = [f for f in os.listdir(os.path.join(out, "inference", "data"))
+                if f.endswith(".txt")]
+        if len(txts) != EVAL_FRAMES or "metric = R40" not in log:
+            raise AssertionError(f"--eval wrote {len(txts)} txts, want {EVAL_FRAMES}, and AP")
+
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            address = f"127.0.0.1:{sock.getsockname()[1]}"
+        log, resume = run_cli([*base, "--num_processes", "1", "--process_id", "0",
+                               "--coordinator_address", address,
+                               *trainer_opts(TRAINER_RESUME), *untuned], env, tmp, "resume")
+        check_trainer_launches(resume, TRAINER_RESUME - TRAINER_ITERS, 0, "resume")
+        for line in (f"resumed from iteration {TRAINER_ITERS}",
+                     f"optimizer count {TRAINER_ITERS} after the restore",
+                     "process group nccl: rank 0 of 1",
+                     "training through DistributedDataParallel"):
+            if line not in log:
+                raise AssertionError(f"the resumed run's log lacks {line!r}")
+        rec = last_terms(out, names)
+        final = torch.load(os.path.join(ckpt, "model_final"), map_location="cpu",
+                           weights_only=True)
+        if (rec["step"], final["optimizer"]["count"], final["state"]["step"]) != (
+                TRAINER_RESUME,) * 3:
+            raise AssertionError(f"resumed run ends at step {rec['step']}, optimizer count "
+                                 f"{final['optimizer']['count']}: a step was skipped")
+        phase("trainer", f"--eval of model_final_ema: {len(txts)} txts, R40 tables; resumed "
+                         f"from {TRAINER_ITERS} with count {TRAINER_ITERS} over NCCL/DDP at "
+                         f"world size 1 to {TRAINER_RESUME}: 11 terms finite, optimizer "
+                         f"count {TRAINER_RESUME}; launches per iteration "
+                         + " ".join(f"{k}={resume[k] // (TRAINER_RESUME - TRAINER_ITERS)}"
+                                    for k in ("dcn_fwd", "dcn_bwd_dx", "dcn_bwd_dwmo")))
+    return {k: train[k] + evaluation[k] + resume[k] for k in train}
 
 
 @contextlib.contextmanager
@@ -1337,9 +1537,13 @@ def main() -> None:
         fused_launches = run_eval()
     with watchdog("diag", 600):
         diag = run_diag()
-    phase("report", f"inference slice dcn_fwd launches {slice_launches}; the kernels line "
-                    f"counts the train phase's launches, the fused eval run's for "
-                    f"dcn_fwd_bn_relu, and the diag tools' for the rest")
+    with watchdog("trainer", 400):
+        trainer = run_trainer(card)
+    phase("report", f"inference slice dcn_fwd launches {slice_launches}; train phase "
+                    + " ".join(f"{k}={v}" for k, v in train["launches"].items())
+                    + "; the kernels line counts the trainer phase's launches (its three CLI "
+                    "runs) for dcn_fwd, dcn_bwd_dx and dcn_bwd_dwmo, the fused eval run's for "
+                    "dcn_fwd_bn_relu, and the diag tools' for the rest")
 
     kernels = [
         dict(name="dcn_fwd", source="monoflex_tpu_torch/csrc/dcn_fwd.cu",
@@ -1351,7 +1555,7 @@ def main() -> None:
         dict(name="dcn_fwd_bn_relu", source="monoflex_tpu_torch/csrc/dcn_fwd.cu",
              replaces="monoflex_tpu/ops/dcn_pallas_v3.py:155 (epilogue)", **epilogue),
     ]
-    launches = {**{{"dcn_forward": "dcn_fwd"}.get(k, k): v for k, v in train["launches"].items()},
+    launches = {**{k: trainer[k] for k in ("dcn_fwd", "dcn_bwd_dx", "dcn_bwd_dwmo")},
                 "dcn_fwd_bn_relu": fused_launches["dcn_forward_bn_relu"]}
     diag_sources = {"dcn_fwd[bf16 math]": ("dcn_fwd.cu", "monoflex_tpu/ops/dcn_pallas.py:112"),
                     "dcn_bwd_dx[bf16 math]": ("dcn_bwd_dx.cu",

@@ -5,8 +5,10 @@ Batches of ``TEST.IMS_PER_BATCH`` images run through one eval step (forward
 + decode, ``train/train_step.py::make_eval_step``); the loader's threads
 build numpy batches and the sweep moves each one to the device here, in the
 calling thread.  ``inference_all_depths`` re-runs the sweep under each of
-the 8 depth-ensemble modes.  One process: the JAX package's multi-host
-sharding of the sweep is not ported yet.
+the 8 depth-ensemble modes.  With several processes (``utils/comm.py``)
+each decodes its contiguous shard of the set into the shared prediction
+directory; after a barrier rank 0 alone runs the diagnostics and the AP, as
+the JAX package does.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 from ..data.loader import make_test_loader
 from ..decode.kitti_writer import write_kitti_results
 from ..eval import evaluate_python
+from ..utils import comm
 from ..utils.precision import apply_precision
 
 # the reference's 8-way sweep, oracle included (reference: engine/inference.py:154)
@@ -98,16 +101,21 @@ def inference(cfg, eval_step: Callable, dataset, output_dir: str, metrics=("R40"
     """Decode the dataset into ``output_dir/data``, run the diagnostics when
     TEST.EVAL_DEPTH / EVAL_DIS_IOUS ask (and ``model`` is given), and return
     the official AP of each metric with the sweep's stats.  A root without
-    ``label_2`` (a KITTI submission) gets the txts and no AP."""
+    ``label_2`` (a KITTI submission) gets the txts and no AP.  Every process
+    calls it; ranks other than 0 return their shard's stats."""
     if visualize:
         raise NotImplementedError("visualize: utils/visualizer.py is not ported")
     apply_precision(cfg)
     logger = logger or logging.getLogger("monoflex.inference")
     batch_size = max(1, cfg.TEST.IMS_PER_BATCH)
     pred_dir = os.path.join(output_dir, "data")
-    stats = compute_on_dataset(eval_step, make_test_loader(cfg, dataset, batch_size=batch_size),
-                               pred_dir, output_depth=output_depth, logger=logger,
-                               device=device)
+    loader = make_test_loader(cfg, dataset, rank=comm.get_rank(),
+                              world_size=comm.get_world_size(), batch_size=batch_size)
+    stats = compute_on_dataset(eval_step, loader, pred_dir, output_depth=output_depth,
+                               logger=logger, device=device)
+    comm.synchronize("inference_done")
+    if not comm.is_main_process():
+        return stats
     if model is not None and (cfg.TEST.EVAL_DEPTH or cfg.TEST.EVAL_DIS_IOUS):
         loader = make_test_loader(cfg, dataset, batch_size=batch_size)
         stats.update(run_diagnostics(cfg, model, loader, logger, device=device))

@@ -18,6 +18,7 @@ from ..core import geometry as G
 from ..models.heads.key2channel import Key2Channel
 from ..ops.image_ops import select_point_of_interest
 from ..ops.rotated_iou import iou_3d_pairs
+from ..utils import comm
 from .primitives import (berhu_loss, iou_loss_2d, l1, log_l1_loss, masked_mean,
                          multibin_orientation_loss, penalty_reduced_focal_loss, smooth_l1)
 
@@ -73,7 +74,7 @@ class LossComputer:
         if self.depth_loss_name == "L1":
             return l1(pred_depth, target_depth)
         if self.depth_loss_name == "berhu":
-            return berhu_loss(pred_depth, target_depth)
+            return berhu_loss(pred_depth, target_depth, top=comm.global_max)
         return log_l1_loss(pred_depth, target_depth)
 
     def _clip_unc(self, u):
@@ -83,7 +84,19 @@ class LossComputer:
                  ) -> Tuple[Tensors, Tensors]:
         """predictions: the detector's output, ``cls`` (B, classes, H, W) and
         ``reg`` a sequence of (B, c_i, H, W) maps in Key2Channel order.
-        Returns (loss_dict, log_dict) with the JAX package's keys."""
+        Returns (loss_dict, log_dict) with the JAX package's keys.
+
+        With more than one process (``utils/comm.py``), as the JAX step is
+        one function of the global batch: every count a term divides by is
+        the global count (all-reduced, without a gradient), and every entry
+        is scaled by the world size, so the mean over processes of an entry
+        is its global value and DistributedDataParallel's mean of the
+        gradients is the gradient of the global loss."""
+        count = comm.global_sum   # the identity in one process
+
+        def mean(x, mask):
+            return masked_mean(x, mask, count)
+
         k2c = self.k2c
         w = self.loss_weights
         reg_maps = predictions["reg"]
@@ -139,12 +152,12 @@ class LossComputer:
         hm_loss, num_pos = penalty_reduced_focal_loss(
             predictions["cls"].permute(0, 2, 3, 1), batch["hm"], self.focal_alpha,
             self.focal_beta)
-        loss_dict["hm_loss"] = w["hm_loss"] * hm_loss / num_pos.clamp(min=1.0)
+        loss_dict["hm_loss"] = w["hm_loss"] * hm_loss / count(num_pos).clamp(min=1.0)
 
         # ---- 2D GIoU ----
         reg2d_losses, ious_2d = iou_loss_2d(pred_reg_2d, target_reg_2d, self.iou_type)
-        loss_dict["bbox_loss"] = w["bbox_loss"] * masked_mean(reg2d_losses, mask2d)
-        log_dict["2D_IoU"] = masked_mean(ious_2d, mask2d)
+        loss_dict["bbox_loss"] = w["bbox_loss"] * mean(reg2d_losses, mask2d)
+        log_dict["2D_IoU"] = mean(ious_2d, mask2d)
 
         # ---- direct depth (+ uncertainty) ----
         pred_direct_depth = pred_depth_unc = None
@@ -155,11 +168,11 @@ class LossComputer:
             pred_depth_unc = self._clip_unc(poi[:, k2c("depth_uncertainty")][:, 0])
         if self.compute_direct_depth_loss and pred_direct_depth is not None:
             depth_l = w["depth_loss"] * self._depth_fn(pred_direct_depth, target_depth)
-            log_dict["depth_loss"] = masked_mean(depth_l.detach(), mask3d)
+            log_dict["depth_loss"] = mean(depth_l.detach(), mask3d)
             if pred_depth_unc is not None:
                 depth_l = depth_l * torch.exp(-pred_depth_unc) + pred_depth_unc * w["depth_loss"]
-            loss_dict["depth_loss"] = masked_mean(depth_l, mask3d)
-            log_dict["depth_MAE"] = masked_mean(
+            loss_dict["depth_loss"] = mean(depth_l, mask3d)
+            log_dict["depth_MAE"] = mean(
                 (pred_direct_depth - target_depth).abs() / target_depth.clamp(min=1e-6), mask3d)
 
         # ---- offset (truncated objects split off with a log penalty) ----
@@ -167,19 +180,19 @@ class LossComputer:
         if self.separate_trunc_offset:
             trunc_l = torch.log1p(offset_l) if self.trunc_offset_loss_type == "log" else offset_l
             loss_dict["trunc_offset_loss"] = (w["trunc_offset_loss"] * (trunc_l * trunc_mask).sum()
-                                              / trunc_mask.sum().clamp(min=1.0))
-            loss_dict["offset_loss"] = w["offset_loss"] * masked_mean(
+                                              / count(trunc_mask.sum()).clamp(min=1.0))
+            loss_dict["offset_loss"] = w["offset_loss"] * mean(
                 offset_l, mask3d * (1.0 - trunc_mask))
         else:
-            loss_dict["offset_loss"] = w["offset_loss"] * masked_mean(offset_l, mask3d)
+            loss_dict["offset_loss"] = w["offset_loss"] * mean(offset_l, mask3d)
 
         # ---- orientation ----
         loss_dict["orien_loss"] = w["orien_loss"] * multibin_orientation_loss(
-            pred_ori, target_ori, mask3d, self.num_bin)
+            pred_ori, target_ori, mask3d, self.num_bin, count)
 
         # ---- dimensions ----
         dims_l = (self._reg_fn(pred_dims, target_dims) * self.dim_weight.to(dev)).sum(dim=1)
-        loss_dict["dims_loss"] = w["dims_loss"] * masked_mean(dims_l, mask3d)
+        loss_dict["dims_loss"] = w["dims_loss"] * mean(dims_l, mask3d)
 
         # ---- keypoints + keypoint depths ----
         pred_kpt_depths = pred_corner_unc = None
@@ -189,7 +202,7 @@ class LossComputer:
             pred_kpts = poi[:, k2c("corner_offset")].reshape(N, 10, 2)
             kpt_l = l1(pred_kpts, target_kpts[..., :2]).sum(dim=2) * kpt_mask
             loss_dict["keypoint_loss"] = (w["keypoint_loss"] * kpt_l.sum()
-                                          / kpt_mask.sum().clamp(min=1.0))
+                                          / count(kpt_mask.sum()).clamp(min=1.0))
             pred_kpt_depths = G.decode_depth_from_keypoints(
                 pred_kpts, pred_dims, calib_params, self.down_ratio, self.depth_range)
             if self.corner_with_uncertainty:
@@ -203,21 +216,22 @@ class LossComputer:
                 valid_l = wk * self._reg_fn(pred_kpt_depths, target_kd)
                 invalid_l = wk * self._reg_fn(pred_kpt_depths.detach(), target_kd)
                 log_dict["keypoint_depth_loss"] = ((valid_l.detach() * kd_valid).sum()
-                                                   / kd_valid.sum().clamp(min=1.0))
+                                                   / count(kd_valid.sum()).clamp(min=1.0))
                 if pred_corner_unc is not None:
                     valid_l = valid_l * torch.exp(-pred_corner_unc) + wk * pred_corner_unc
                     invalid_l = invalid_l * torch.exp(-pred_corner_unc)
-                valid_term = (valid_l * kd_valid).sum() / kd_valid.sum().clamp(min=1.0)
-                invalid_term = (invalid_l * kd_invalid).sum() / kd_invalid.sum().clamp(min=1.0)
+                valid_term = (valid_l * kd_valid).sum() / count(kd_valid.sum()).clamp(min=1.0)
+                invalid_term = ((invalid_l * kd_invalid).sum()
+                                / count(kd_invalid.sum()).clamp(min=1.0))
                 loss_dict["keypoint_depth_loss"] = (
                     valid_term + invalid_term if self.modify_invalid_keypoint_depths
                     else valid_term)
 
             kpt_mae = ((pred_kpt_depths - target_depth[:, None]).abs()
                        / target_depth[:, None].clamp(min=1e-6))
-            log_dict["center_MAE"] = masked_mean(kpt_mae[:, 0], mask3d)
-            log_dict["02_MAE"] = masked_mean(kpt_mae[:, 1], mask3d)
-            log_dict["13_MAE"] = masked_mean(kpt_mae[:, 2], mask3d)
+            log_dict["center_MAE"] = mean(kpt_mae[:, 0], mask3d)
+            log_dict["02_MAE"] = mean(kpt_mae[:, 1], mask3d)
+            log_dict["13_MAE"] = mean(kpt_mae[:, 2], mask3d)
 
         # ---- depth ensembles for the corner loss + diagnostics ----
         soft_depths = None
@@ -228,15 +242,15 @@ class LossComputer:
                                                dim=1))
             combined_mae = ((combined_depth - target_depth[:, None]).abs()
                             / target_depth[:, None].clamp(min=1e-6))
-            log_dict["lower_MAE"] = masked_mean(combined_mae.min(dim=1).values, mask3d)
+            log_dict["lower_MAE"] = mean(combined_mae.min(dim=1).values, mask3d)
             hard_idx = combined_unc.argmin(dim=1, keepdim=True)
-            log_dict["hard_MAE"] = masked_mean(combined_mae.gather(1, hard_idx)[:, 0], mask3d)
+            log_dict["hard_MAE"] = mean(combined_mae.gather(1, hard_idx)[:, 0], mask3d)
             weights = 1.0 / combined_unc
             weights = weights / weights.sum(dim=1, keepdim=True)
             soft_depths = (combined_depth * weights).sum(dim=1)
-            log_dict["soft_MAE"] = masked_mean(
+            log_dict["soft_MAE"] = mean(
                 (soft_depths - target_depth).abs() / target_depth.clamp(min=1e-6), mask3d)
-            log_dict["mean_MAE"] = masked_mean(
+            log_dict["mean_MAE"] = mean(
                 (combined_depth.mean(dim=1) - target_depth).abs()
                 / target_depth.clamp(min=1e-6), mask3d)
 
@@ -258,18 +272,22 @@ class LossComputer:
         pred_rotys, _ = G.decode_axes_orientation(pred_ori, pred_locs, self.num_bin)
         pred_corners = G.encode_box3d(pred_rotys, pred_dims, pred_locs)
 
-        log_dict["3D_IoU"] = masked_mean(iou_3d_pairs(pred_corners, target_corners), mask3d)
+        log_dict["3D_IoU"] = mean(iou_3d_pairs(pred_corners, target_corners), mask3d)
 
         if self.compute_corner_loss:
             corner_l = self._reg_fn(pred_corners, target_corners).sum(dim=2)   # (N, 8)
-            loss_dict["corner_loss"] = w["corner_loss"] * masked_mean(
+            loss_dict["corner_loss"] = w["corner_loss"] * mean(
                 corner_l, mask3d[:, None].expand(N, 8))
 
         if self.compute_weighted_depth_loss and soft_depths is not None:
             loss_dict["weighted_avg_depth_loss"] = (
                 w["weighted_avg_depth_loss"]
-                * masked_mean(self._reg_fn(soft_depths, target_depth), mask3d))
+                * mean(self._reg_fn(soft_depths, target_depth), mask3d))
 
+        world = comm.get_world_size()
+        if world > 1:
+            loss_dict = {k: v * world for k, v in loss_dict.items()}
+            log_dict = {k: v * world for k, v in log_dict.items()}
         for key, value in loss_dict.items():
             if key not in log_dict:
                 log_dict[key] = value.detach()

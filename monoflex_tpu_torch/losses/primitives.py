@@ -1,18 +1,30 @@
 """Loss primitives, mask-weighted and fixed-shape (counterpart of
 ``monoflex_tpu/losses/primitives.py``): every function takes explicit
-element masks instead of compacting the valid rows."""
+element masks instead of compacting the valid rows.
+
+A mean's divisor is ``count(local count)``: the local count itself by
+default, and the count over every process (``utils/comm.py::global_sum``)
+when the loss is one term of a data-parallel step, so that each process's
+mean is its share of the global batch's.
+"""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Tuple
 
 import torch
 import torch.nn.functional as F
 
+Reduce = Callable[[torch.Tensor], torch.Tensor]
 
-def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """sum(x * mask) / clamp(sum(mask), 1): the mean over the valid rows."""
-    return (x * mask).sum() / mask.sum().clamp(min=1.0)
+
+def local(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
+def masked_mean(x: torch.Tensor, mask: torch.Tensor, count: Reduce = local) -> torch.Tensor:
+    """sum(x * mask) / clamp(count(sum(mask)), 1): the mean over the valid rows."""
+    return (x * mask).sum() / count(mask.sum()).clamp(min=1.0)
 
 
 def penalty_reduced_focal_loss(prediction: torch.Tensor, target: torch.Tensor,
@@ -58,10 +70,13 @@ def iou_loss_2d(pred: torch.Tensor, target: torch.Tensor, loss_type: str = "giou
     return losses, ious
 
 
-def berhu_loss(pred: torch.Tensor, target: torch.Tensor, c_factor: float = 0.2) -> torch.Tensor:
-    """Reverse Huber: L1 below the adaptive threshold c, scaled L2 above."""
+def berhu_loss(pred: torch.Tensor, target: torch.Tensor, c_factor: float = 0.2,
+               top: Reduce = local) -> torch.Tensor:
+    """Reverse Huber: L1 below the adaptive threshold c, scaled L2 above;
+    c from ``top(max |pred - target|)`` (the max over every process under
+    data parallelism)."""
     diff = (pred - target).abs()
-    c = (diff.max() * c_factor).clamp(min=1e-4)
+    c = (top(diff.max()) * c_factor).clamp(min=1e-4)
     return torch.where(diff <= c, diff, (diff ** 2 + c ** 2) / (2.0 * c))
 
 
@@ -84,7 +99,8 @@ def smooth_l1(pred: torch.Tensor, target: torch.Tensor, beta: float = 1.0) -> to
 
 
 def multibin_orientation_loss(vector_ori: torch.Tensor, gt_ori: torch.Tensor,
-                              mask: torch.Tensor, num_bin: int = 4) -> torch.Tensor:
+                              mask: torch.Tensor, num_bin: int = 4,
+                              count: Reduce = local) -> torch.Tensor:
     """Multibin loss: per bin a 2-way cross entropy (mean over the valid
     objects, summed over bins / num_bin) plus L1 on the normalized (sin, cos)
     of the active bins.  vector_ori (N, 4*num_bin); gt_ori (N, 2*num_bin) =
@@ -96,7 +112,7 @@ def multibin_orientation_loss(vector_ori: torch.Tensor, gt_ori: torch.Tensor,
 
     log_probs = F.log_softmax(logits, dim=2)
     ce = -log_probs.gather(2, gt_cls.long()[..., None])[..., 0]
-    per_bin_mean = (ce * mask[:, None]).sum(dim=0) / mask.sum().clamp(min=1.0)
+    per_bin_mean = (ce * mask[:, None]).sum(dim=0) / count(mask.sum()).clamp(min=1.0)
     cls_loss = per_bin_mean.sum()
 
     sincos = vector_ori[:, num_bin * 2:].reshape(n, num_bin, 2)
@@ -104,5 +120,5 @@ def multibin_orientation_loss(vector_ori: torch.Tensor, gt_ori: torch.Tensor,
     active = (gt_cls == 1.0).to(vector_ori.dtype) * mask[:, None]
     reg = ((sincos[..., 0] - torch.sin(gt_off)).abs()
            + (sincos[..., 1] - torch.cos(gt_off)).abs())
-    reg_loss = (reg * active).sum() / active.sum().clamp(min=1.0)
+    reg_loss = (reg * active).sum() / count(active.sum()).clamp(min=1.0)
     return cls_loss / num_bin + reg_loss

@@ -14,15 +14,17 @@ kernel's output write.
 from __future__ import annotations
 
 import math
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ...ops.dcn import modulated_deform_conv, modulated_deform_conv_bn_relu
 from ...ops.dcn_cuda import dcn_forward, dcn_forward_bn_relu
-from ..batchnorm import BatchNorm2d
+from ..batchnorm import BatchNorm2d, recomputing
 
 BN_EPS = 1e-5
 
@@ -276,13 +278,17 @@ class DLAUp(nn.Module):
 
 class DLASeg(nn.Module):
     """DLA trunk -> DLAUp -> final IDAUp -> one stride-4 map.  ``specs``:
-    one DCNSpec per neck stage (ida_0 deepest, ida_1, ida_2, final ida_up)."""
+    one DCNSpec per neck stage (ida_0 deepest, ida_1, ida_2, final ida_up).
+    ``remat`` (``TPU.REMAT_BACKBONE``) recomputes the trunk in the backward
+    (``torch.utils.checkpoint``), as the JAX trunk runs under ``nn.remat``;
+    the recomputation leaves the BN running stats alone."""
 
     last_level = 5
 
     def __init__(self, specs: Sequence[DCNSpec], down_ratio: int = 4,
-                 channels: Sequence[int] = (16, 32, 64, 128, 256, 512)):
+                 channels: Sequence[int] = (16, 32, 64, 128, 256, 512), remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.first_level = int(math.log2(down_ratio))
         last_level = self.last_level
         ch = list(channels[self.first_level:])
@@ -295,7 +301,12 @@ class DLASeg(nn.Module):
                             [2 ** i for i in range(n_final)], specs[-1])
 
     def forward(self, x) -> torch.Tensor:
-        pyramid = self.dla_up(self.base(x)[self.first_level:])
+        if self.remat and torch.is_grad_enabled():
+            feats = checkpoint(self.base, x, use_reentrant=False,
+                               context_fn=lambda: (nullcontext(), recomputing(self.base)))
+        else:
+            feats = self.base(x)
+        pyramid = self.dla_up(feats[self.first_level:])
         return self.ida_up(pyramid[:self.last_level - self.first_level])[-1]
 
 
@@ -353,4 +364,5 @@ def build_backbone(cfg, use_dcn_kernel: bool = True) -> DLASeg:
     if cfg.TPU.COMPUTE_DTYPE != "float32":
         raise NotImplementedError(f"TPU.COMPUTE_DTYPE {cfg.TPU.COMPUTE_DTYPE!r}: only float32")
     return DLASeg(resolve_dcn_specs(cfg, use_dcn_kernel),
-                  down_ratio=cfg.MODEL.BACKBONE.DOWN_RATIO)
+                  down_ratio=cfg.MODEL.BACKBONE.DOWN_RATIO,
+                  remat=bool(cfg.TPU.REMAT_BACKBONE))

@@ -1,4 +1,4 @@
-"""BatchNorm with flax's train-mode statistics.
+"""BatchNorm with flax's train-mode statistics, over the global batch.
 
 The JAX package's BatchNorm is ``flax.linen.BatchNorm(momentum=0.9)``.  In
 train mode it normalizes with the batch mean and the biased batch variance,
@@ -7,25 +7,63 @@ variance, where torch folds the unbiased one (a factor n/(n-1) apart, 6% on a
 16-pixel map).  The JAX package is the reference, so these modules follow
 flax: running_mean and running_var move 0.1 of the way to the batch mean and
 biased variance.  Eval mode is stock torch.
+
+Under data parallelism the JAX step is one function of the global batch, so
+with more than one process the train-mode mean and variance are those of
+every process's samples together: the sums are reduced with
+``torch.distributed.nn.functional.all_reduce``, whose backward reduces the
+gradient too, in two passes (the mean, then the centred squares; E[x^2] -
+E[x]^2 loses digits in f32 on the trunk's 1-pixel maps).
+``torch.nn.SyncBatchNorm`` does not serve: it folds the unbiased variance
+and takes no CPU tensors.
+
+Under ``TPU.REMAT_BACKBONE`` the trunk's forward runs again in the backward
+(``recomputing``); the running stats move once a step, in the first run.
 """
 
 from __future__ import annotations
+
+from contextlib import contextmanager
+from typing import Iterator
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils import comm
+
 
 class _FlaxStats:
+    recomputing = False
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=[0, *range(2, x.dim())], correction=0)
-            self.running_mean.lerp_(mean, self.momentum)
-            self.running_var.lerp_(var, self.momentum)
-            self.num_batches_tracked.add_(1)
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        dims = [0, *range(2, x.dim())]
+        if comm.get_world_size() == 1:
+            with torch.no_grad():
+                var, mean = torch.var_mean(x, dim=dims, correction=0)
+            y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        else:
+            y, mean, var = self._global_batch_norm(x, dims)
+        if not self.recomputing:
+            with torch.no_grad():
+                self.running_mean.lerp_(mean.detach(), self.momentum)
+                self.running_var.lerp_(var.detach(), self.momentum)
+                self.num_batches_tracked.add_(1)
+        return y
+
+    def _global_batch_norm(self, x: torch.Tensor, dims):
+        from torch.distributed.nn.functional import all_reduce
+
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        sums = all_reduce(torch.cat([x.sum(dims), x.new_full((1,), x.numel() / x.shape[1])]))
+        count = sums[-1].detach()
+        mean = sums[:-1] / count
+        centred = x - mean.view(shape)
+        var = all_reduce((centred * centred).sum(dims)) / count
+        y = centred * torch.rsqrt(var + self.eps).view(shape)
+        return y * self.weight.view(shape) + self.bias.view(shape), mean, var
 
 
 class BatchNorm1d(_FlaxStats, nn.BatchNorm1d):
@@ -34,3 +72,17 @@ class BatchNorm1d(_FlaxStats, nn.BatchNorm1d):
 
 class BatchNorm2d(_FlaxStats, nn.BatchNorm2d):
     pass
+
+
+@contextmanager
+def recomputing(module: nn.Module) -> Iterator[None]:
+    """Mark every flax-statistics BN under ``module`` as running a
+    recomputation, which leaves the running stats alone."""
+    bns = [m for m in module.modules() if isinstance(m, _FlaxStats)]
+    for m in bns:
+        m.recomputing = True
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.recomputing = False

@@ -16,6 +16,12 @@ same chain around a torch optimizer, in the same order:
    the update altogether, weight decay included;
 5. the parameter EMA with the bias-corrected decay min(decay, (1+n)/(10+n)).
    As in the JAX package it does not shadow the BN running stats.
+   ``ema_params`` swaps it into the model for an evaluation or a save.
+
+``state_dict`` of the optimizer and the EMA holds tensors and plain values
+only, for ``train/checkpoint.py``; the schedules are rebuilt from the config
+and read at the restored count.  Build both on the unwrapped model, so their
+parameter names carry no ``module.`` prefix from DistributedDataParallel.
 
 A step that is not taken (the train step's non-finite guard) moves none of
 it: not the count, the schedule, the moments nor the EMA.
@@ -24,7 +30,8 @@ it: not the count, the schedule, the moments nor the EMA.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from contextlib import contextmanager
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -100,6 +107,43 @@ class ParamEma:
         for name, p in model.named_parameters():
             self.shadow[name].mul_(d).add_(p, alpha=1.0 - d)
 
+    def state_dict(self) -> Dict[str, object]:
+        return {"shadow": dict(self.shadow), "count": self.count}
+
+    def check_state_dict(self, state: Dict[str, object]) -> None:
+        """Raise ValueError unless ``state`` shadows exactly these parameters."""
+        if sorted(state["shadow"]) != sorted(self.shadow):
+            raise ValueError("the EMA shadows other parameters than the checkpoint's")
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict[str, object]) -> None:
+        self.check_state_dict(state)
+        for name, value in state["shadow"].items():
+            self.shadow[name].copy_(value)
+        self.count = int(state["count"])
+
+
+@contextmanager
+def ema_params(model: nn.Module, ema: Optional[ParamEma]) -> Iterator[nn.Module]:
+    """``model`` with the EMA shadow in its parameters for the body of the
+    ``with`` (counterpart of the JAX package's ``get_ema_params``); the raw
+    parameters come back bit for bit on exit.  The BN running stats are not
+    shadowed (C6).  Without an EMA the model is left as it is."""
+    if ema is None:
+        yield model
+        return
+    params = dict(model.named_parameters())
+    raw = {n: p.detach().clone() for n, p in params.items()}
+    with torch.no_grad():
+        for n, p in params.items():
+            p.copy_(ema.shadow[n])
+    try:
+        yield model
+    finally:
+        with torch.no_grad():
+            for n, p in params.items():
+                p.copy_(raw[n])
+
 
 class Optimizer:
     """A torch optimizer driven as the JAX package's optax chain (see the
@@ -144,6 +188,29 @@ class Optimizer:
         self.count += 1
         if self.ema is not None:
             self.ema.update(self.model)
+
+    def state_dict(self) -> Dict[str, object]:
+        """The moments, the count of applied updates (the schedule and the
+        one-cycle momentum are functions of it) and the EMA."""
+        return {"inner": self.inner.state_dict(), "count": self.count,
+                "ema": None if self.ema is None else self.ema.state_dict()}
+
+    def load_state_dict(self, state: Dict[str, object]) -> None:
+        """Restore ``state_dict()``; ValueError, with nothing changed, when
+        its structure differs (EMA on one side only, other parameters or
+        parameter groups)."""
+        if (state["ema"] is None) != (self.ema is None):
+            raise ValueError("EMA on one side only (SOLVER.EMA_DECAY differs)")
+        if self.ema is not None:
+            self.ema.check_state_dict(state["ema"])
+        groups = state["inner"]["param_groups"]
+        if [len(g["params"]) for g in groups] != [len(g["params"])
+                                                  for g in self.inner.param_groups]:
+            raise ValueError("the checkpoint's parameter groups differ")
+        self.inner.load_state_dict(state["inner"])
+        self.count = int(state["count"])
+        if self.ema is not None:
+            self.ema.load_state_dict(state["ema"])
 
 
 def lr_factors(name: str, cfg) -> Tuple[bool, float]:

@@ -11,6 +11,12 @@ moved during the forward, so they are restored) stay as before the step,
 while ``step`` and ``skips`` advance.  Deciding that costs one host sync per
 step, on the total loss.  ``make_eval_step`` is the evaluation path's
 forward and decode.
+
+With more than one process (``model`` wrapped by ``parallel/mesh.py``) the
+losses are the processes' shares of the global batch's (``losses/``); one
+all-reduce on the device turns the total and the log entries into the
+global ones, so every process takes or skips the update together, on the
+same number, and restores its BN buffers together.
 """
 
 from __future__ import annotations
@@ -19,8 +25,10 @@ from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
+from ..utils import comm
 from ..utils.precision import apply_precision
 from .solver import Optimizer
 
@@ -50,8 +58,9 @@ def forward_backward(model: nn.Module, loss_computer, batch: Tensors
 
 def use_model_precision(model: nn.Module) -> None:
     """Apply the precision flags ``build_model`` resolved for ``model``
-    from its config (a model built elsewhere keeps the flags as they are)."""
-    precision = getattr(model, "precision", None)
+    (or for the module a DistributedDataParallel wraps) from its config (a
+    model built elsewhere keeps the flags as they are)."""
+    precision = getattr(getattr(model, "module", model), "precision", None)
     if precision is not None:
         apply_precision(precision)
 
@@ -66,6 +75,14 @@ def make_train_step(model: nn.Module, loss_computer, optimizer: Optimizer
         buffers = [b for _, b in model.named_buffers()]
         saved = [b.clone() for b in buffers]
         total, _, log_dict = forward_backward(model, loss_computer, batch)
+        log_dict = {k: v.detach() for k, v in log_dict.items()}
+        world = comm.get_world_size()
+        if world > 1:
+            keys = sorted(log_dict)
+            values = torch.stack([total, *(log_dict[k] for k in keys)])
+            dist.all_reduce(values)
+            values /= world
+            total, log_dict = values[0], dict(zip(keys, values[1:]))
         finite = bool(torch.isfinite(total))
         if finite:
             optimizer.step()
@@ -75,8 +92,7 @@ def make_train_step(model: nn.Module, loss_computer, optimizer: Optimizer
                     b.copy_(old)
         skips = 0 if finite else state.skips + 1
         metrics = {"total_loss": total, "skipped": float(not finite),
-                   "consecutive_skips": float(skips),
-                   **{k: v.detach() for k, v in log_dict.items()}}
+                   "consecutive_skips": float(skips), **log_dict}
         return TrainState(step=state.step + 1, skips=skips), metrics
 
     return train_step

@@ -110,3 +110,58 @@ def test_ablation_counts_the_separable_window(kind):
               else 4 * (2 * R + 1) * 9 * n * C + 11 * (2 * R + 1) * 9 * n)
     f32, _, tc = smoke.dcn_work(kind, H, W, C, Co, 4)
     assert (f32, tc) == (window, smoke.TC_PASSES["fwd"] * gemm)
+
+
+def test_trainer_phase_reads_a_cpu_run_of_its_cli(tmp_path):
+    """The trainer phase's first CLI run (its opts, its process, its launch
+    log, its checks of the log and the checkpoints) under
+    MONOFLEX_PLATFORM=cpu at 96x320, batch 2, on a 1/4-scale tree; the
+    kernels are not launched on the CPU, so the launch log reads 0."""
+    from monoflex_tpu_torch.config import get_cfg_defaults
+    from monoflex_tpu_torch.data.synthetic import make_synthetic_kitti
+
+    smoke = load_smoke()
+    make_synthetic_kitti(str(tmp_path / "kitti" / "training"), scale=4)
+    out = tmp_path / "run"
+    env = {**os.environ, "MONOFLEX_PLATFORM": "cpu", "MONOFLEX_DATA_DIR": str(tmp_path),
+           "OMP_NUM_THREADS": "2", "PYTHONPATH": ROOT}
+    small = ["INPUT.HEIGHT_TRAIN", "96", "INPUT.WIDTH_TRAIN", "320", "INPUT.HEIGHT_TEST", "96",
+             "INPUT.WIDTH_TEST", "320", "DATALOADER.NUM_WORKERS", "2", "MODEL.HEAD.NUM_CHANNEL", "16"]
+    log, launches = smoke.run_cli(
+        ["--config", os.path.join(ROOT, "runs", "monoflex_ema.yaml"), "--output", str(out),
+         "--profile", "2", *smoke.trainer_opts(smoke.TRAINER_ITERS, batch=2), *small],
+        env, str(tmp_path), "train")
+    assert launches["dcn_fwd"] == launches["dcn_bwd_dx"] == 0
+    meters = smoke.loop_meters(log, smoke.TRAINER_ITERS)
+    assert all(v > 0 for v in meters.values())
+    cfg = get_cfg_defaults()
+    cfg.merge_from_file(os.path.join(ROOT, "runs", "monoflex_ema.yaml"))
+    rec = smoke.last_terms(str(out), cfg.MODEL.HEAD.LOSS_NAMES)
+    assert rec["step"] == smoke.TRAINER_ITERS
+    assert sorted(os.listdir(out / "ckpt")) == [
+        "last_checkpoint", f"model_checkpoint_{smoke.TRAINER_SAVE}", "model_final",
+        "model_final_ema", "model_moderate_best_soft"]
+    assert "profiler trace of 2 steps" in log
+    assert len(os.listdir(out / f"eval_{smoke.TRAINER_ITERS}" / "data")) == 3
+    shutil.rmtree(out)      # its checkpoints take a few hundred MB each
+
+
+def test_trainer_phase_parses_the_profile_line():
+    from monoflex_tpu_torch.engine.trainer import profile_line
+
+    smoke = load_smoke()
+    got = smoke.profile_window("x INFO: " + profile_line(5, "/o/profile/t.json", 1500.0, 1200.0))
+    assert got == {"steps": 5, "wall_ms": 1500.0, "busy_ms": 1200.0, "idle_share": 0.2}
+    assert smoke.profile_window(profile_line(5, "/o/t.json", 1500.0, 0.0)) is None
+    with pytest.raises(AssertionError):
+        smoke.profile_window(profile_line(5, "/o/t.json", 1500.0, None))
+
+
+def test_trainer_phase_counts_launches_per_iteration():
+    smoke = load_smoke()
+    ok = {"dcn_fwd": 16 * 22, "dcn_fwd_bn_relu": 0, "dcn_bwd_dx": 320, "dcn_bwd_dwmo": 320}
+    smoke.check_trainer_launches(ok, 20, 2, "train")
+    smoke.check_trainer_launches(dict(ok, dcn_fwd=0, dcn_fwd_bn_relu=16 * 22), 20, 2, "fused")
+    for bad in (dict(ok, dcn_bwd_dx=319), dict(ok, dcn_fwd=16 * 20)):
+        with pytest.raises(AssertionError):
+            smoke.check_trainer_launches(bad, 20, 2, "train")

@@ -1,4 +1,5 @@
-"""The port stands alone: importing its inference, training, evaluation and
+"""The port stands alone: importing its inference, training (the CLI, the
+loop, checkpoints, launch and data parallelism), evaluation and
 kernel-diagnostics paths (and chip_smoke.py, which drives them on the GPU)
 loads no jax, flax or triton module, no module of the JAX package
 ``monoflex_tpu``, and builds or loads no kernel library."""
@@ -16,6 +17,7 @@ def loaded():
     return {m for m in sys.modules if m.split(".")[0] in banned}
 before = loaded()
 import chip_smoke
+import monoflex_tpu_torch.cli
 import monoflex_tpu_torch.config
 import monoflex_tpu_torch.core.geometry_np
 import monoflex_tpu_torch.core.heatmap
@@ -29,8 +31,11 @@ import monoflex_tpu_torch.decode.diagnostics
 import monoflex_tpu_torch.decode.kitti_writer
 import monoflex_tpu_torch.decode.nms
 import monoflex_tpu_torch.decode.postprocessor
+import monoflex_tpu_torch.engine.defaults
 import monoflex_tpu_torch.engine.inference
+import monoflex_tpu_torch.engine.launch
 import monoflex_tpu_torch.engine.test_net
+import monoflex_tpu_torch.engine.trainer
 import monoflex_tpu_torch.eval
 import monoflex_tpu_torch.losses.loss_computation
 import monoflex_tpu_torch.models.detector
@@ -38,6 +43,8 @@ import monoflex_tpu_torch.models.heads.key2channel
 import monoflex_tpu_torch.ops.dcn_ablate
 import monoflex_tpu_torch.ops.relayout
 import monoflex_tpu_torch.ops.rotated_iou
+import monoflex_tpu_torch.parallel.mesh
+import monoflex_tpu_torch.train.checkpoint
 import monoflex_tpu_torch.train.solver
 import monoflex_tpu_torch.tools.fwd_ablate
 import monoflex_tpu_torch.tools.kernel_bench
@@ -45,7 +52,13 @@ import monoflex_tpu_torch.tools.kernel_diag
 import monoflex_tpu_torch.tools.trace_time
 import monoflex_tpu_torch.tools.transpose_ablate
 import monoflex_tpu_torch.train.train_step
+import monoflex_tpu_torch.utils.backup_files
+import monoflex_tpu_torch.utils.comm
+import monoflex_tpu_torch.utils.envs
+import monoflex_tpu_torch.utils.logger
+import monoflex_tpu_torch.utils.metric_logger
 import monoflex_tpu_torch.utils.param_bridge
+import monoflex_tpu_torch.utils.timer
 from monoflex_tpu_torch.ops import dcn_cuda
 new = sorted(loaded() - before)
 assert not new, new
