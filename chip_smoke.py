@@ -60,7 +60,24 @@ Phases, one line each; any failure exits non-zero and prints no result:
              variant, transpose_ablate with every variant.  Fails on a
              non-zero exit, an error record, a non-finite time or a parity
              error above tolerance.
-  9. trainer the training entry point, python -m monoflex_tpu_torch.cli, as
+  9. configs every model configuration beyond the slice's, at full width,
+             batch 8, 384x1280, seeded weights: runs/monoflex_bf16.yaml
+             (TPU.COMPUTE_DTYPE bfloat16, pallas3b) forward+decode on the
+             kernels against the same bf16 model on the plain op, its img/s
+             over 10 passes beside the f32 model's in the same call, a
+             device split of one pass of each, 5 training steps (16 launches
+             of each kernel a step, 11 finite terms, no skip, peak memory)
+             and the kernel step against the plain step with the BN
+             statistics fixed, beside the plain step against itself; the
+             unbounded "gather" impl (plain PyTorch,
+             the port of the JAX package's XLA op) against pallas3 with every
+             offset inside R and with most beyond it, and a mixed neck
+             ("gather" on ida_0) launching dcn_fwd 14 times a forward; the
+             offset guard under "auto" rerouting saturated ida_0 weights to
+             gather, and the rerouted model's forward; then dla34_nodcn, GN
+             heads, dlav0, dlav0_dla169 and the bf16 model on "shift", one
+             checked forward each and timed (without cuDNN's autotune).
+ 10. trainer the training entry point, python -m monoflex_tpu_torch.cli, as
              processes on the card: runs/monoflex_ema.yaml at 384x1280,
              batch 8, on the phase's own 16-frame 1242x375 tree (splits
              trainval): 20 iterations with a checkpoint at 10, an eval of
@@ -75,7 +92,7 @@ Phases, one line each; any failure exits non-zero and prints no result:
              iteration), "resumed from iteration 20" with count 20, 16 txts
              from the eval.  Prints the loop's img/s, its time and data
              meters and the device idle share of the profile window.
- 10. report  the kernels' JSON line (with each kernel's bound on the card),
+ 11. report  the kernels' JSON line (with each kernel's bound on the card),
              the card line, and last the result line
              {"ok": true, "device": {...}}.
 """
@@ -119,10 +136,13 @@ from monoflex_tpu_torch.ops.dcn_ablate import dcn_ablate, dcn_ablate_reference
 from monoflex_tpu_torch.ops.relayout import relayout, relayout_dims, relayout_reference
 from monoflex_tpu_torch.tools import LAUNCH_LOG_ENV
 from monoflex_tpu_torch.tools.ablate_time import diag_inputs, graph_ms, nomap_conv_weight, rotating
+from monoflex_tpu_torch.tools.bf16_step_spread import fixed_stats_step, step_distances
 from monoflex_tpu_torch.tools.kernel_bench import MODEL_SHAPES
+from monoflex_tpu_torch.tools.profile_split import split
 from monoflex_tpu_torch.tools.step_drift import perturb_offset_convs, step_drift
 from monoflex_tpu_torch.train.solver import build_optimizer
 from monoflex_tpu_torch.train.train_step import TrainState, make_eval_step, make_train_step
+from monoflex_tpu_torch.utils.dcn_guard import dcn_offset_guard, reroute
 from monoflex_tpu_torch.utils.precision import apply_precision, current_precision
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -332,10 +352,11 @@ def bound_of(ops: float, nbytes: float, tc_ops: float = 0):
 def check_kernel() -> dict:
     """dcn_fwd against the plain op at the neck's shapes, x in bf16 (the
     default impl, cast inside the kernel), and bit-equal to the kernel on x
-    cast to bf16 first; the kernel is also timed with x in f32, the transfer
-    of the pallas3, pallas2, pallas2p and pallas impls."""
+    cast to bf16 first and on x handed over in bf16 (a bf16 model's entry,
+    also timed); the kernel is also timed with x in f32, the transfer of the
+    pallas3, pallas2, pallas2p and pallas impls."""
     worst = 0.0
-    ms_fwd = plain_fwd = f32_fwd = 0.0
+    ms_fwd = plain_fwd = f32_fwd = bf16x_fwd = 0.0
     ops = nbytes = tc = 0
     for i, ((H, W, C, Co), layers) in enumerate(DCN_SHAPES):
         g = torch.Generator(device="cuda").manual_seed(i)
@@ -357,6 +378,12 @@ def check_kernel() -> dict:
         def kernel_f32():
             return dcn_cuda.dcn_forward(*args, max_offset=R, transfer_dtype=torch.float32)
 
+        # a bf16 model's x arrives in bf16 and enters the kernel as it is
+        x16 = x.to(torch.bfloat16)
+
+        def kernel_bf16x():
+            return dcn_cuda.dcn_forward(x16, *args[1:], **kw)
+
         y = kernel()
         err = (y - plain()).abs().max().item()
         if not (err <= KERNEL_TOL and torch.isfinite(y).all()):
@@ -365,28 +392,33 @@ def check_kernel() -> dict:
         # the kernel on x cast to bf16 first; bit-equal
         with torch.no_grad():
             cast_first = dcn_cuda._fwd_kernel(x.to(torch.bfloat16), off, mask, w, b, R)
-        if not torch.equal(y, cast_first):
+        if not (torch.equal(y, cast_first) and torch.equal(y, kernel_bf16x())):
             raise AssertionError(f"dcn_fwd {(BATCH, H, W, C, Co)}: the folded cast differs from "
                                  f"cast-then-kernel by {(y - cast_first).abs().max().item()}")
         del cast_first
         # plain, kernel, kernel, plain: drift in clocks hits both sides alike
-        p1, k1, f1, f2, k2, p2 = (time_ms(plain, 5), time_ms(kernel, 20), time_ms(kernel_f32, 20),
-                                  time_ms(kernel_f32, 20), time_ms(kernel, 20), time_ms(plain, 5))
-        k_ms, p_ms, f_ms = (k1 + k2) / 2, (p1 + p2) / 2, (f1 + f2) / 2
+        p1, k1, f1, b1 = (time_ms(plain, 5), time_ms(kernel, 20), time_ms(kernel_f32, 20),
+                          time_ms(kernel_bf16x, 20))
+        b2, f2, k2, p2 = (time_ms(kernel_bf16x, 20), time_ms(kernel_f32, 20), time_ms(kernel, 20),
+                          time_ms(plain, 5))
+        k_ms, p_ms, f_ms, b_ms = (k1 + k2) / 2, (p1 + p2) / 2, (f1 + f2) / 2, (b1 + b2) / 2
         worst = max(worst, err)
         ms_fwd += layers * k_ms
         plain_fwd += layers * p_ms
         f32_fwd += layers * f_ms
+        bf16x_fwd += layers * b_ms
         work = dcn_work("fwd", H, W, C, Co, x.element_size())
         ops, nbytes, tc = ops + layers * work[0], nbytes + layers * work[1], tc + layers * work[2]
         phase("kernel", f"dcn_fwd B,H,W,C,Co={(BATCH, H, W, C, Co)} layers={layers} "
                         f"max_abs_err={err:.3e} (tol {KERNEL_TOL}) kernel_ms={k_ms:.4f} "
-                        f"plain_ms={p_ms:.4f} kernel_f32x_ms={f_ms:.4f}")
-        del x, off, mask, w, b, args, y
+                        f"plain_ms={p_ms:.4f} kernel_f32x_ms={f_ms:.4f} "
+                        f"kernel_bf16x_ms={b_ms:.4f}")
+        del x, x16, off, mask, w, b, args, y
     torch.cuda.empty_cache()
     bound_ms, bound_by = bound_of(ops, nbytes, tc)
     phase("kernel", f"per forward (16 layers): kernel_ms={ms_fwd:.4f} plain_ms={plain_fwd:.4f} "
-                    f"kernel_f32x_ms={f32_fwd:.4f} "
+                    f"kernel_f32x_ms={f32_fwd:.4f} kernel_bf16x_ms={bf16x_fwd:.4f} (x in bf16, "
+                    f"as a bf16 model gives it) "
                     f"bound_ms={bound_ms:.4f} ({bound_by}: {tc / 1e9:.1f} GFLOP on the tensor "
                     f"cores ({TC_PASSES['fwd']} bf16 passes), {ops / 1e9:.1f} f32 GFLOP, "
                     f"{nbytes / 1e9:.3f} GB); every layer's folded cast bit-equal to cast-then-kernel")
@@ -1428,6 +1460,337 @@ def run_trainer(card: str) -> dict:
     return {k: train[k] + evaluation[k] + resume[k] for k in train}
 
 
+# the configs phase.  bf16 model, kernels vs the plain op, eval mode: both
+# round the same activations to bf16, after f32 sums of the DCN in another
+# order (1e-6 relative apart), so now and then a BN output rounds to the
+# neighbouring bf16 value (2^-8 relative) and the next layers carry it; the
+# CPU tests find the port's bf16 model 1.9e-3 from the JAX one on these maps
+# (which differ from it the same way), against 2e-4 in f32
+BF16_HEADS_TOL = 2e-2
+# the bf16 step, kernels vs plain op, from one state.  In train mode the
+# batch statistics make a bf16 step chaotic (a last-bit change of one
+# activation reaches every gradient: the CPU tests find the JAX bf16 step's
+# gradients at a median 100% from its own f32 step's), so the step is
+# compared with the statistics fixed (BN on its running statistics, eval
+# mode, the same losses and backward).  The state it is read at comes from
+# 6 train-mode steps, which are not bit-reproducible on the card, so the
+# reading moves with it.  The limits stand between the sound readings and
+# those of another function (this check and tools/bf16_step_spread.py on
+# an H100, 9 sound readings over 4 runs and 4 seeds: gradient median 1.6e-3 to
+# 9.6e-3, worst 2.3e-2 to 0.121; the plain step against itself reads a
+# worst of 2.0e-2 on the stem's kernel; the clamp one pixel narrower reads
+# a median of 6.6e-2 or more and a worst of 0.67 or more): the median to
+# 2e-2 (2.1x the largest sound reading, 3.3x under the nearest wrong one),
+# the worst to 0.25 (2.1x and 2.7x), the 11 terms' sum to 1e-3 relative
+# (sound readings up to 7.8e-6)
+BF16_STEP_LOSS_RTOL = 1e-3
+BF16_STEP_GRAD_REL_L2 = 0.25
+BF16_STEP_GRAD_MEDIAN = 2e-2
+BF16_PASSES = 10
+BF16_STEPS = 5
+# gather vs pallas3 (f32 x both): with every offset inside R the same
+# function, summed in another order through 16 DCN layers (the neck output to
+# 1e-4 of its largest element, the head maps to HEADS_TOL); with offsets up
+# to 4.5 pixels (R = 2) the clamp moves most samples, and the neck outputs
+# must part by more than 10% of the largest element
+GATHER_NECK_RTOL = 1e-4
+GATHER_UNCLAMPED_RDIFF = 0.1
+# the mixed neck ("gather", "pallas3b", "pallas3b", "pallas3b"): ida_0's two
+# DCNs on the unbounded plain op, the other 14 through dcn_fwd
+MIXED_IMPLS = ("gather", "pallas3b", "pallas3b", "pallas3b")
+IDA0_DCNS = 2
+# the other configurations: a forward each, without cuDNN's autotune (a
+# new set of convolution shapes each, checked and timed, not tuned)
+OTHER_CONFIGS = (
+    ("dla34_nodcn", "monoflex.yaml", ("MODEL.BACKBONE.CONV_BODY", "dla34_nodcn"), 0),
+    ("GN heads", "monoflex.yaml", ("MODEL.HEAD.USE_NORMALIZATION", "GN"), 16),
+    ("dlav0", "monoflex.yaml", ("MODEL.BACKBONE.CONV_BODY", "dlav0"), 0),
+    ("dlav0_dla169", "monoflex.yaml", ("MODEL.BACKBONE.CONV_BODY", "dlav0_dla169"), 0),
+    ("shift under bf16", "monoflex_bf16.yaml", ("TPU.DCN_FORCE_IMPL", "shift"), 0))
+
+
+def config_of(yaml: str, *overrides) -> object:
+    cfg = get_cfg_defaults()
+    cfg.merge_from_file(os.path.join(ROOT, "runs", yaml))
+    cfg.merge_from_list(list(overrides))
+    return cfg
+
+
+def check_outputs(label: str, out: dict, images: torch.Tensor, rows=None) -> None:
+    """Finite maps: a (B, 3, H/4, W/4) heatmap and 9 regression maps for
+    NHWC ``images``; finite (B, 50, 14) rows."""
+    maps = [out["cls"], *out["reg"]]
+    B, H, W, _ = images.shape
+    if tuple(out["cls"].shape) != (B, 3, H // 4, W // 4) or len(maps) != 10:
+        raise AssertionError(f"{label}: cls {tuple(out['cls'].shape)}, {len(maps)} maps")
+    if not all(torch.isfinite(t).all() for t in maps):
+        raise AssertionError(f"{label}: a head map is not finite")
+    if rows is not None and (tuple(rows.shape) != (B, 50, 14) or not torch.isfinite(rows).all()):
+        raise AssertionError(f"{label}: rows {tuple(rows.shape)} not finite")
+
+
+def passes_per_s(fn, passes: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(passes):
+        fn()
+    torch.cuda.synchronize()
+    return BATCH * passes / (time.perf_counter() - t0)
+
+
+def check_bf16(card: str) -> dict:
+    """runs/monoflex_bf16.yaml (pallas3b): forward + decode on the kernels
+    against the plain op, img/s beside the f32 model's in this call, a
+    device split of one pass of each, BF16_STEPS training steps and the
+    kernel step against the plain step with the statistics fixed."""
+    cfg16, cfg32 = config_of("monoflex_bf16.yaml"), config_of("monoflex.yaml")
+    batch = {k: torch.from_numpy(v).cuda() for k, v in make_inference_batch(BATCH).items()}
+    post = PostProcessor(cfg16)
+    m32 = build_model(cfg32, device="cuda", seed=0)
+    perturb_offset_convs(m32, seed=1)
+    models = {}
+    for label, cfg, kernel in (("bf16", cfg16, True), ("bf16 plain", cfg16, False),
+                               ("f32", cfg32, True)):
+        models[label] = build_model(cfg, device="cuda", use_dcn_kernel=kernel)
+        models[label].load_state_dict(m32.state_dict())
+    del m32
+
+    def infer(label):
+        def run():
+            out = models[label](batch["image"], batch["edge_indices"], batch["edge_len"])
+            return out, post(out, batch)
+        return run
+
+    with torch.inference_mode():
+        out, (rows, valid, _) = infer("bf16")()
+        check_outputs("bf16", out, batch["image"], rows)
+        err = max_head_err(out, infer("bf16 plain")()[0])
+        for f in (dcn_cuda.dcn_forward, dcn_cuda.dcn_bwd_dx, dcn_cuda.dcn_bwd_dwmo):
+            f.launches = 0
+        rate16 = passes_per_s(infer("bf16"), BF16_PASSES)
+        launches = dcn_cuda.dcn_forward.launches
+        rate32 = passes_per_s(infer("f32"), BF16_PASSES)
+        splits = {label: split(infer(label), 3) for label in ("bf16", "f32")}
+    if launches != 16 * (BF16_PASSES + 1):
+        raise AssertionError(f"bf16: {launches} dcn_fwd launches in {BF16_PASSES + 1} forwards")
+    phase("configs", f"bf16 (runs/monoflex_bf16.yaml, pallas3b) forward+decode at batch "
+                     f"{BATCH}, 384x1280: {rate16:.2f} img/s over {BF16_PASSES} passes against "
+                     f"{rate32:.2f} for the f32 model (runs/monoflex.yaml) in this call, on "
+                     f"{card}; dcn_fwd launches={launches} ({BF16_PASSES} passes + warm-up); "
+                     f"rows finite, {int(valid.sum())} above threshold; head maps kernel vs "
+                     f"plain op max abs err {err:.3e} (tol {BF16_HEADS_TOL})")
+    for label, rec in splits.items():
+        top = ", ".join(f"{k} {v:.2f}" for k, v in list(rec["device_ms"].items())[:6])
+        phase("configs", f"{label} pass, device split (torch.profiler, 3 passes): wall "
+                         f"{rec['wall_ms']:.2f} ms, busy {rec['busy_ms']:.2f} ms, idle share "
+                         f"{rec['idle_share']:.4f}, peak {rec['peak_gb']:.2f} GB; device ms: {top}")
+    if not err <= BF16_HEADS_TOL:
+        raise AssertionError(f"bf16 head maps differ by {err} > {BF16_HEADS_TOL}")
+    models.clear()
+    torch.cuda.empty_cache()
+
+    # training: the train phase's milder offset convs, AdamW, BF16_STEPS steps
+    model = build_model(cfg16, device="cuda", seed=0)
+    perturb_offset_convs(model, seed=1, weight_scale=0.2)
+    tbatch = {k: torch.from_numpy(v).cuda() for k, v in make_train_batch(BATCH).items()}
+    optimizer, _, _ = build_optimizer(cfg16, model)
+    train_step = make_train_step(model, LossComputer(cfg16), optimizer)
+    state, metrics = train_step(TrainState(), tbatch)              # warm-up
+    torch.cuda.synchronize()
+    counters = (dcn_cuda.dcn_forward, dcn_cuda.dcn_bwd_dx, dcn_cuda.dcn_bwd_dwmo)
+    for f in counters:
+        f.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(BF16_STEPS):
+        state, metrics = train_step(state, tbatch)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    step_launches = {f.__name__: f.launches for f in counters}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if any(n != 16 * BF16_STEPS for n in step_launches.values()):
+        raise AssertionError(f"bf16 steps launched {step_launches}, want {16 * BF16_STEPS} each")
+    terms = list(cfg16.MODEL.HEAD.LOSS_NAMES)
+    values = {k: float(metrics[k]) for k in terms + ["total_loss"]}
+    if (len(terms) != 11 or not all(math.isfinite(v) for v in values.values())
+            or metrics["skipped"] != 0.0 or state.skips != 0):
+        raise AssertionError(f"bf16 steps: terms {values}, skipped {metrics['skipped']}")
+    phase("configs", f"bf16 {BF16_STEPS} training steps at batch {BATCH}, 384x1280: "
+                     f"{BATCH * BF16_STEPS / elapsed:.2f} img/s, peak {peak_gb:.2f} GB on {card}; "
+                     "launches " + " ".join(f"{k}={v}" for k, v in step_launches.items())
+                     + f"; total_loss {values['total_loss']:.4f}, 11 terms finite, skipped 0")
+    saved = {k: v.clone() for k, v in model.state_dict().items()}
+    del model, optimizer, train_step
+    torch.cuda.empty_cache()
+    plain = fixed_stats_step(saved, cfg16, tbatch, False)
+    got = step_distances(fixed_stats_step(saved, cfg16, tbatch, True), plain)
+    floor = step_distances(fixed_stats_step(saved, cfg16, tbatch, False), plain)
+    phase("configs", f"bf16 kernel step vs plain-op step, statistics fixed (eval-mode BN; the "
+                     f"train-mode bf16 step is chaotic): total rel {got['loss_rel_err']:.3e} "
+                     f"(tol {BF16_STEP_LOSS_RTOL}); gradient rel L2 median "
+                     f"{got['grad_median']:.3e} (tol {BF16_STEP_GRAD_MEDIAN}), worst "
+                     f"{got['grad_worst']:.3e} ({got['worst_param']}; tol {BF16_STEP_GRAD_REL_L2}) "
+                     f"over {got['params']} parameters; the plain-op step against itself: total "
+                     f"rel {floor['loss_rel_err']:.3e}, gradient median {floor['grad_median']:.3e}, "
+                     f"worst {floor['grad_worst']:.3e} ({floor['worst_param']})")
+    if (not got["loss_rel_err"] <= BF16_STEP_LOSS_RTOL
+            or not got["grad_median"] <= BF16_STEP_GRAD_MEDIAN
+            or not got["grad_worst"] <= BF16_STEP_GRAD_REL_L2):
+        raise AssertionError("the bf16 kernel step and plain-op step disagree")
+    del plain, saved
+    torch.cuda.empty_cache()
+    return {"forward": launches, "steps": step_launches}
+
+
+@torch.no_grad()
+def fixed_offsets(model: torch.nn.Module, seed: int, reach: float = 1.5) -> None:
+    """Every offset/mask conv with zero weights and seeded biases: each
+    offset a fixed fractional value in (-reach, reach) (inside any R >= 2 at
+    the default), and seeded mask logits."""
+    g = torch.Generator().manual_seed(seed)
+    for m in model.modules():
+        if isinstance(m, DCN):
+            conv = m.conv_offset_mask
+            conv.weight.zero_()
+            conv.bias.copy_(torch.randn(conv.bias.shape, generator=g))
+            conv.bias[:18] = reach * torch.tanh(conv.bias[:18])
+
+
+@torch.no_grad()
+def ida0_offsets_at(model: torch.nn.Module, value: float) -> None:
+    """ida_0's offset biases set to ``value`` pixels (unbounded-trained
+    weights there)."""
+    for m in model.backbone.dla_up.ida_0.modules():
+        if isinstance(m, DCN):
+            m.conv_offset_mask.bias[:18] = value
+
+
+def check_gather() -> dict:
+    """The unbounded "gather" impl (the port of the JAX package's XLA
+    gather op: plain PyTorch, no kernel): equal to pallas3 with every offset
+    inside R, not with offsets up to 4.5 pixels; a mixed neck launches
+    dcn_fwd on its kernel stages only; the forwards timed."""
+    batch = {k: torch.from_numpy(v).cuda() for k, v in make_inference_batch(BATCH).items()}
+    args = (batch["image"], batch["edge_indices"], batch["edge_len"])
+    cfg = config_of("monoflex.yaml")
+    base = build_model(cfg, device="cuda", seed=0)
+    diffs, neck_diffs, shares = {}, {}, {}
+    with torch.inference_mode():
+        for label, reach in (("inside R", 1.5), ("beyond R", 4.5)):
+            fixed_offsets(base, seed=1, reach=reach)
+            maps, feats = {}, {}
+            for impl in ("gather", "pallas3"):
+                model = build_model(config_of("monoflex.yaml", "TPU.DCN_FORCE_IMPL", impl),
+                                    device="cuda")
+                model.load_state_dict(base.state_dict())
+                stats, handles = offset_stats(model)
+                handles.append(model.backbone.register_forward_hook(
+                    lambda _m, _i, out, impl=impl: feats.__setitem__(impl, out)))
+                maps[impl] = model(*args)
+                for h in handles:
+                    h.remove()
+                check_outputs(f"{impl} ({label})", maps[impl], batch["image"])
+                if impl == "gather":
+                    shares[label] = sum(st[0] for st in stats) / len(stats)
+                    gather_ms = time_ms(lambda: model(*args), 3)
+                del model
+            diffs[label] = max_head_err(maps["gather"], maps["pallas3"])
+            neck_diffs[label] = ((feats["gather"] - feats["pallas3"]).abs().max()
+                                 / feats["pallas3"].abs().max()).item()
+        mixed = build_model(config_of("monoflex.yaml", "TPU.DCN_IMPL_PER_STAGE", MIXED_IMPLS),
+                            device="cuda")
+        mixed.load_state_dict(base.state_dict())
+        mixed(*args)
+        dcn_cuda.dcn_forward.launches = 0
+        check_outputs("mixed", mixed(*args), batch["image"])
+        mixed_launches = dcn_cuda.dcn_forward.launches
+        mixed_ms = time_ms(lambda: mixed(*args), 3)
+    del base, mixed
+    torch.cuda.empty_cache()
+    phase("configs", f"gather (the port of the JAX package's XLA gather DCN, plain PyTorch, no "
+                     f"kernel) vs pallas3, every offset inside R ({shares['inside R']:.3f} "
+                     f"beyond): neck output {neck_diffs['inside R']:.3e} of its max (tol "
+                     f"{GATHER_NECK_RTOL}), head maps {diffs['inside R']:.3e} (tol {HEADS_TOL}); "
+                     f"{shares['beyond R']:.3f} of offsets beyond R: neck output "
+                     f"{neck_diffs['beyond R']:.3e} of its max (must exceed "
+                     f"{GATHER_UNCLAMPED_RDIFF}), head maps {diffs['beyond R']:.3e}; forward "
+                     f"{gather_ms:.2f} ms at batch {BATCH}; mixed {list(MIXED_IMPLS)}: dcn_fwd "
+                     f"launches={mixed_launches} (want {16 - IDA0_DCNS}), forward "
+                     f"{mixed_ms:.2f} ms")
+    if not (shares["inside R"] == 0 and neck_diffs["inside R"] <= GATHER_NECK_RTOL
+            and diffs["inside R"] <= HEADS_TOL
+            and neck_diffs["beyond R"] > GATHER_UNCLAMPED_RDIFF
+            and mixed_launches == 16 - IDA0_DCNS):
+        raise AssertionError("the gather impl does not behave as the unbounded DCN")
+    return {"mixed": mixed_launches}
+
+
+def check_guard() -> dict:
+    """The offset guard under "auto" on weights whose ida_0 offsets pass its
+    clamp: it reroutes ida_0 to gather, and the rerouted model runs."""
+    cfg = config_of("monoflex.yaml", "TPU.DCN_OFFSET_GUARD", "auto")
+    model = build_model(cfg, device="cuda", seed=0)
+    fixed_offsets(model, seed=1)
+    ida0_offsets_at(model, 7.0)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in make_inference_batch(BATCH).items()}
+    fired, suggestion, rows = dcn_offset_guard(cfg, model, batch,
+                                               logger=logging.getLogger("chip_smoke"))
+    if not (fired and suggestion == MIXED_IMPLS):
+        raise AssertionError(f"guard: fired {fired}, suggestion {suggestion}, rows {rows}")
+    reroute(cfg, model, suggestion)
+    dcn_cuda.dcn_forward.launches = 0
+    with torch.inference_mode():
+        check_outputs("guard", model(batch["image"], batch["edge_indices"], batch["edge_len"]),
+                      batch["image"])
+    launches = dcn_cuda.dcn_forward.launches
+    phase("configs", "guard (auto): rows " + "; ".join(
+        f"stage {r['stage']} {r['impl']} R={r['R']:.0f} beyond {r['frac_clipped']:.3f}"
+        for r in rows) + f"; suggestion {list(suggestion)}; the rerouted model runs, dcn_fwd "
+        f"launches={launches}")
+    if launches != 16 - IDA0_DCNS:
+        raise AssertionError(f"guard: the rerouted model launched dcn_fwd {launches} times")
+    del model
+    torch.cuda.empty_cache()
+    return {"guard": launches}
+
+
+def check_other_configs() -> dict:
+    """dla34_nodcn, GN heads, dlav0, dlav0_dla169 and the bf16 model on
+    "shift" (the port of the JAX package's XLA clamped op): one checked
+    forward each, then timed."""
+    batch = {k: torch.from_numpy(v).cuda() for k, v in make_inference_batch(BATCH).items()}
+    args = (batch["image"], batch["edge_indices"], batch["edge_len"])
+    launches = {}
+    for label, yaml, override, want in OTHER_CONFIGS:
+        cfg = config_of(yaml, *override, "CUDNN_BENCHMARK", False)
+        model = build_model(cfg, device="cuda", seed=0)
+        with torch.inference_mode():
+            dcn_cuda.dcn_forward.launches = 0
+            check_outputs(label, model(*args), batch["image"])
+            launches[label] = dcn_cuda.dcn_forward.launches
+            ms = time_ms(lambda: model(*args), 3)
+        n_params = sum(p.numel() for p in model.parameters())
+        phase("configs", f"{label}: forward at batch {BATCH}, 384x1280 finite, (8, 3, 96, 320) "
+                         f"heatmap and 9 maps; {ms:.2f} ms ({BATCH / ms * 1e3:.2f} img/s, no "
+                         f"autotune); {n_params / 1e6:.2f} M parameters; dcn_fwd launches="
+                         f"{launches[label]}")
+        if launches[label] != want:
+            raise AssertionError(f"{label}: {launches[label]} dcn_fwd launches, want {want}")
+        del model
+        torch.cuda.empty_cache()
+    return launches
+
+
+def run_configs(card: str) -> dict:
+    """The configs phase: every model configuration beyond the slice's."""
+    t0 = time.perf_counter()
+    out = {"bf16": check_bf16(card), **check_gather(), **check_guard(),
+           **check_other_configs()}
+    phase("configs", f"done in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 @contextlib.contextmanager
 def watchdog(name: str, seconds: float):
     """End the process with a message if the phase runs past ``seconds``: a
@@ -1537,10 +1900,16 @@ def main() -> None:
         fused_launches = run_eval()
     with watchdog("diag", 600):
         diag = run_diag()
+    with watchdog("configs", 300):
+        configs = run_configs(card)
     with watchdog("trainer", 400):
         trainer = run_trainer(card)
     phase("report", f"inference slice dcn_fwd launches {slice_launches}; train phase "
                     + " ".join(f"{k}={v}" for k, v in train["launches"].items())
+                    + f"; configs phase: bf16 forwards dcn_fwd={configs['bf16']['forward']}, "
+                    "bf16 steps " + " ".join(f"{k}={v}" for k, v in configs["bf16"]["steps"].items())
+                    + f", mixed neck dcn_fwd={configs['mixed']}, rerouted by the guard "
+                    f"dcn_fwd={configs['guard']}"
                     + "; the kernels line counts the trainer phase's launches (its three CLI "
                     "runs) for dcn_fwd, dcn_bwd_dx and dcn_bwd_dwmo, the fused eval run's for "
                     "dcn_fwd_bn_relu, and the diag tools' for the rest")

@@ -18,10 +18,10 @@ import torch.distributed as dist
 
 from .config import DatasetCatalog
 from .data.dataset import CachedFlipDataset, KITTIDataset
-from .data.loader import make_train_loader
+from .data.loader import collate, make_train_loader
 from .decode.postprocessor import PostProcessor
 from .engine.defaults import default_argument_parser, default_setup, setup
-from .engine.inference import inference, inference_all_depths
+from .engine.inference import inference, inference_all_depths, to_device
 from .engine.launch import launch, on_cpu
 from .engine.trainer import do_train
 from .losses.loss_computation import LossComputer
@@ -30,6 +30,7 @@ from .parallel.mesh import wrap_model
 from .train.checkpoint import Checkpointer
 from .train.solver import build_optimizer
 from .train.train_step import make_eval_step, make_train_step
+from .utils.dcn_guard import dcn_offset_guard, reroute
 
 # the kernel sources ride along with the Python in the run's source snapshot
 BACKUP_EXTS = (".py", ".yaml", ".yml", ".cu", ".cuh")
@@ -125,14 +126,15 @@ def _train_or_evaluate(args):
     if restored:
         logger.info(f"optimizer count {optimizer.count} after the restore")
 
-    guard = cfg.TPU.DCN_OFFSET_GUARD
-    if restored and guard == "auto":
-        raise ValueError("TPU.DCN_OFFSET_GUARD 'auto' reroutes stages onto the unbounded "
-                         "'gather' DCN impl, which the port does not serve yet (ROADMAP A4); "
-                         "set it to 'warn' or 'off'")
-    if restored and guard == "warn":
-        logger.warning("TPU.DCN_OFFSET_GUARD 'warn': the learned-offset scan is not run; it "
-                       "waits for the 'gather' DCN impl (ROADMAP A4)")
+    if restored and cfg.TPU.DCN_OFFSET_GUARD != "off":
+        # restored weights on bounded-window DCN impls are a measured AP-0
+        # trap: scan the learned offsets, warn, and under "auto" reroute
+        sample = to_device(collate([train_ds[0]]), device)
+        fired, suggestion, _ = dcn_offset_guard(cfg, model, sample, logger=logger)
+        if fired and suggestion is not None:
+            logger.warning("DCN offset guard (auto): rebuilding model with "
+                           f"TPU.DCN_IMPL_PER_STAGE={list(suggestion)}")
+            reroute(cfg, model, suggestion)
 
     eval_step = make_eval_step(model, post)
 

@@ -19,6 +19,16 @@ and takes no CPU tensors.
 
 Under ``TPU.REMAT_BACKBONE`` the trunk's forward runs again in the backward
 (``recomputing``); the running stats move once a step, in the first run.
+
+Under a bf16 model (``compute_dtype`` bfloat16, set by ``build_model``)
+the module follows flax's ``BatchNorm(dtype=bfloat16)`` (flax
+``normalization.py`` ``_compute_stats`` and ``_normalize``): the statistics
+are reduced in f32 whatever the input's dtype (a bf16 input's mean and
+E[x^2] accumulate in f32 without an f32 copy, and var = E[x^2] - mean^2, as
+flax's fast variance), (x - mean) * rsqrt(var + eps) * scale + bias is
+computed in f32 (scale and bias are f32), and the output is cast once, to
+bf16.  The input may be bf16 (a trunk conv) or f32 (a DCN's output).  The
+parameters and the running statistics stay f32.
 """
 
 from __future__ import annotations
@@ -35,17 +45,29 @@ from ..utils import comm
 
 class _FlaxStats:
     recomputing = False
+    compute_dtype = torch.float32    # the output's dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # F.batch_norm takes a bf16 input with f32 parameters and statistics,
+        # computes in f32 and writes bf16
+        return self._normalize(x).to(self.compute_dtype)
+
+    def _normalize(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
         dims = [0, *range(2, x.dim())]
         if comm.get_world_size() == 1:
             with torch.no_grad():
-                var, mean = torch.var_mean(x, dim=dims, correction=0)
+                if x.dtype == torch.float32:
+                    var, mean = torch.var_mean(x, dim=dims, correction=0)
+                else:
+                    n = x.numel() / x.shape[1]
+                    mean = x.sum(dims, dtype=torch.float32) / n
+                    sq = torch.linalg.vector_norm(x, 2, dims, dtype=torch.float32) ** 2 / n
+                    var = (sq - mean * mean).clamp_min(0.0)
             y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
         else:
-            y, mean, var = self._global_batch_norm(x, dims)
+            y, mean, var = self._global_batch_norm(x.float(), dims)
         if not self.recomputing:
             with torch.no_grad():
                 self.running_mean.lerp_(mean.detach(), self.momentum)

@@ -70,6 +70,9 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
             m.running_mean.zero_()
             m.running_var.fill_(1.0)
             m.num_batches_tracked.zero_()
+        elif isinstance(m, nn.GroupNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
     for m in model.modules():
         if isinstance(m, (DCN, BilinearUp, Predictor, MonoFlex)):
             m.reset_parameters(generator)
@@ -84,8 +87,8 @@ def build_model(cfg, device="cuda", seed: int = 0, use_dcn_kernel: bool = True) 
     ``model.precision``, which the train and eval steps apply again."""
     precision = apply_precision(resolve_precision(cfg))
     with torch.device("meta"):
-        model = MonoFlex(build_backbone(cfg, use_dcn_kernel),
-                         build_predictor(cfg),
+        backbone = build_backbone(cfg, use_dcn_kernel)
+        model = MonoFlex(backbone, build_predictor(cfg, in_channels=backbone.out_channels),
                          pixel_mean=tuple(cfg.INPUT.PIXEL_MEAN),
                          pixel_std=tuple(cfg.INPUT.PIXEL_STD),
                          to_bgr=bool(cfg.INPUT.TO_BGR))

@@ -5,7 +5,16 @@ Submodules carry the reference torch names: ``class_head.{0,1,2}``,
 ``reg_features.i``, ``reg_heads.i.j`` and ``trunc_{heatmap,offset}_conv``.
 The reference's InPlaceABN (BN + leaky ReLU in one module) becomes
 ``NormAct``, which keeps the BN parameters in slot 1 of each tower so the
-final 1x1 conv of ``class_head`` stays at index 2.
+final 1x1 conv of ``class_head`` stays at index 2.  Under
+``MODEL.HEAD.USE_NORMALIZATION`` "GN" slot 1 is flax's GroupNorm (32 groups,
+epsilon 1e-6) and the activation, under "none" the activation alone.
+
+Under ``TPU.COMPUTE_DTYPE`` "bfloat16" the towers run in bf16 (the JAX
+``TowerBlock``'s dtype) and everything after them in f32, as in the JAX
+predictor: ``class_out`` and the ``reg_out_*`` convs take their tower's
+feature cast to f32; the class feature stays bf16 into the edge gather and
+the regression feature is f32, so the gathered edge features concatenate to
+f32 and the edge-fusion 1-D convs run in f32.
 """
 
 from __future__ import annotations
@@ -18,8 +27,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.image_ops import gather_edge_features, scatter_add_edge, sigmoid_hm
+from ...utils.precision import compute_dtype
 from ..batchnorm import BatchNorm1d, BatchNorm2d
+from ..layers import Conv2d, GroupNorm, set_compute_dtype
 from .key2channel import Key2Channel
+
+NORMS = ("BN", "GN", "none")
 
 
 class NormAct(BatchNorm2d):
@@ -33,9 +46,22 @@ class NormAct(BatchNorm2d):
         return F.leaky_relu(super().forward(x), self.negative_slope)
 
 
-def _tower(cin: int, cout: int, negative_slope: float) -> nn.Sequential:
-    return nn.Sequential(nn.Conv2d(cin, cout, 3, padding=1, bias=False),
-                         NormAct(cout, negative_slope))
+class GroupNormAct(GroupNorm):
+    """flax's GroupNorm(num_groups=32) then leaky ReLU."""
+
+    def __init__(self, channels: int, negative_slope: float):
+        super().__init__(channels)
+        self.negative_slope = negative_slope
+
+    def forward(self, x):
+        return F.leaky_relu(super().forward(x), self.negative_slope)
+
+
+def _tower(cin: int, cout: int, negative_slope: float, norm: str) -> nn.Sequential:
+    act = {"BN": NormAct, "GN": GroupNormAct}
+    return nn.Sequential(Conv2d(cin, cout, 3, padding=1, bias=False),
+                         act[norm](cout, negative_slope) if norm in act
+                         else nn.LeakyReLU(negative_slope))
 
 
 def _conv1d_stack(hidden: int, out: int, kernel: int, use_bn: bool,
@@ -55,8 +81,11 @@ class Predictor(nn.Module):
                  regression_channels: Sequence[Sequence[int]],
                  leaky: bool = True, init_p: float = 0.01, uncertainty_init: bool = True,
                  enable_edge_fusion: bool = True, edge_kernel_size: int = 3,
-                 edge_fusion_bn: bool = True, edge_fusion_relu: bool = False):
+                 edge_fusion_bn: bool = True, edge_fusion_relu: bool = False,
+                 norm: str = "BN", dtype: torch.dtype = torch.float32):
         super().__init__()
+        if norm not in NORMS:
+            raise NotImplementedError(f"MODEL.HEAD.USE_NORMALIZATION {norm!r}: one of {NORMS}")
         slope = 0.01 if leaky else 0.0
         self.regression_heads = [list(g) for g in regression_heads]
         self.head_conv = head_conv
@@ -64,10 +93,14 @@ class Predictor(nn.Module):
         self.uncertainty_init = uncertainty_init
         self.k2c = Key2Channel(regression_heads, regression_channels)
 
-        self.class_head = nn.Sequential(*_tower(in_channels, head_conv, slope),
+        self.class_head = nn.Sequential(*_tower(in_channels, head_conv, slope, norm),
                                         nn.Conv2d(head_conv, num_classes, 1))
         self.reg_features = nn.ModuleList(
-            _tower(in_channels, head_conv, slope) for _ in regression_heads)
+            _tower(in_channels, head_conv, slope, norm) for _ in regression_heads)
+        # the towers in the compute dtype; the 1x1 output convs and the edge
+        # fusion stay f32
+        for tower in [self.class_head[:2], *self.reg_features]:
+            set_compute_dtype(tower, dtype)
         self.reg_heads = nn.ModuleList(
             nn.ModuleList(nn.Conv2d(head_conv, ch, 1) for ch in chans)
             for chans in regression_channels)
@@ -96,13 +129,13 @@ class Predictor(nn.Module):
     def forward(self, features: torch.Tensor, edge_indices: Optional[torch.Tensor] = None,
                 edge_len: Optional[torch.Tensor] = None) -> Dict[str, object]:
         feat_cls = self.class_head[1](self.class_head[0](features))
-        out_cls = self.class_head[2](feat_cls)
+        out_cls = self.class_head[2](feat_cls.float())
 
         reg_outputs = []
         offset_feature = None
         offset_index = None
         for gi, group in enumerate(self.regression_heads):
-            feat = self.reg_features[gi](features)
+            feat = self.reg_features[gi](features).float()
             for ki, key in enumerate(group):
                 if key == "3d_offset":
                     offset_feature = feat
@@ -124,8 +157,6 @@ class Predictor(nn.Module):
 
 def build_predictor(cfg, in_channels: int = 64) -> Predictor:
     h = cfg.MODEL.HEAD
-    if h.USE_NORMALIZATION != "BN":
-        raise NotImplementedError(f"MODEL.HEAD.USE_NORMALIZATION {h.USE_NORMALIZATION!r}: only BN")
     return Predictor(
         in_channels=in_channels,
         num_classes=len(cfg.DATASETS.DETECT_CLASSES),
@@ -139,4 +170,6 @@ def build_predictor(cfg, in_channels: int = 64) -> Predictor:
         edge_kernel_size=h.EDGE_FUSION_KERNEL_SIZE,
         edge_fusion_bn=h.EDGE_FUSION_NORM == "BN",
         edge_fusion_relu=h.EDGE_FUSION_RELU,
+        norm=h.USE_NORMALIZATION,
+        dtype=compute_dtype(cfg),
     )

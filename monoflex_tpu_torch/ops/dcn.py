@@ -9,9 +9,23 @@ sampled bilinearly at the 4 corners with zero padding, modulated by the mask
 and contracted over the 9 taps x C channels.  The TPU kernels' (2R+1)^2 hat
 window is exactly this bilinear sample at the clamped point.
 
-Layouts follow the JAX op: x (B,H,W,C) NHWC; offset (B,H,W,18) interleaved
-(dy_k, dx_k) for taps k = 3*(ky+1) + (kx+1); mask (B,H,W,9) post-sigmoid;
-weight (3,3,C,Co).  Returns (B,H,W,Co) float32.
+Layouts follow the JAX op: x (B,H,W,C) NHWC, float32 or bfloat16 (a bf16
+model's activation; its values are exact in f32, so the op reads them
+without rounding); offset (B,H,W,18) interleaved (dy_k, dx_k) for taps k =
+3*(ky+1) + (kx+1); mask (B,H,W,9) post-sigmoid; weight (3,3,C,Co).  Returns
+(B,H,W,Co) float32.
+
+``max_offset=None`` is the unbounded op, the port of the JAX package's
+``modulated_deform_conv``/``bilinear_gather`` (the "gather" impl, an XLA op
+there, not a Pallas kernel): no clamp, so a sample may lie any distance off
+the map, and a corner outside the map contributes 0; the arithmetic is f32
+and the output takes x's dtype, as the JAX op returns ``out.astype(x.dtype)``.
+Its backward is autograd's, the floor-based derivative JAX's autodiff of the
+gather gives.
+
+``modulated_deform_conv_shift`` is the port of the JAX package's XLA clamped
+op of the same name (the "shift" impl): the same function, with that op's
+roundings under a bf16 x, where it weighs and sums each tap's window in bf16.
 
 Two bf16 modes, as the TPU kernels have them:
 
@@ -34,6 +48,7 @@ import torch
 
 # (dy, dx) of the 4 bilinear corners
 _CORNERS = ((0, 0), (0, 1), (1, 0), (1, 1))
+# the dtypes of the window math, and those x may come in
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -95,7 +110,9 @@ def bilinear_columns(x: torch.Tensor, py: torch.Tensor, px: torch.Tensor, scale,
         wgt = (ly if dy else 1.0 - ly) * (lx if dx else 1.0 - lx) * inside * scale
         if round_weights:
             wgt = round_to(wgt)
-        idx = batch_base + yi.clamp(0, H - 1).long() * W + xi.clamp(0, W - 1).long()
+        # a NaN position (a diverged offset) samples row 0 with a NaN weight
+        idx = (batch_base + yi.nan_to_num(0.0).clamp(0, H - 1).long() * W
+               + xi.nan_to_num(0.0).clamp(0, W - 1).long())
         term = x_rows.index_select(0, idx.reshape(-1)).view(B, H, W, 9, C) * wgt[..., None]
         cols = term if cols is None else cols + term
     return cols
@@ -103,10 +120,11 @@ def bilinear_columns(x: torch.Tensor, py: torch.Tensor, px: torch.Tensor, scale,
 
 def modulated_deform_conv(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
                           weight: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
-                          max_offset: int,
+                          max_offset: Optional[float],
                           transfer_dtype: torch.dtype = torch.float32,
                           compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """DCNv2 forward with offsets clamped to +-max_offset.
+    """DCNv2 forward with offsets clamped to +-max_offset, or unclamped
+    under ``max_offset=None`` (module docstring; output in x's dtype then).
 
     transfer_dtype: x is rounded to this dtype before sampling (bf16 mirrors
     the TPU kernel's bf16-shipped x); the arithmetic is float32 either way, so
@@ -115,31 +133,88 @@ def modulated_deform_conv(x: torch.Tensor, offset: torch.Tensor, mask: torch.Ten
     straight-through for autograd: dx is the float32 gradient with respect to
     the rounded x, as the TPU backward returns it, not a bf16-rounded one.
     """
-    check_dcn_inputs(x, offset, mask, weight, bias)
+    check_dcn_inputs(x, offset, mask, weight, bias, x_dtypes=COMPUTE_DTYPES)
     bf16_math = check_compute_dtype(compute_dtype)
+    out_dtype = x.dtype if max_offset is None else torch.float32
     B, H, W, C = x.shape
     Co = weight.shape[3]
+    x = x.float()
     if transfer_dtype != torch.float32:
         x = round_to(x, transfer_dtype)
     if bf16_math:
         x, weight = round_to(x), round_to(weight)
-    R = float(max_offset)
     dev = x.device
+    oy, ox = offset[..., 0::2], offset[..., 1::2]
+    if max_offset is not None:
+        R = float(max_offset)
+        oy, ox = oy.clamp(-R, R), ox.clamp(-R, R)
 
     k = torch.arange(9, device=dev)
     ky = (k // 3 - 1).float()
     kx = (k % 3 - 1).float()
-    py = torch.arange(H, device=dev, dtype=torch.float32).view(1, H, 1, 1) + ky \
-        + offset[..., 0::2].clamp(-R, R)                            # (B,H,W,9)
-    px = torch.arange(W, device=dev, dtype=torch.float32).view(1, 1, W, 1) + kx \
-        + offset[..., 1::2].clamp(-R, R)
+    py = torch.arange(H, device=dev, dtype=torch.float32).view(1, H, 1, 1) + ky + oy  # (B,H,W,9)
+    px = torch.arange(W, device=dev, dtype=torch.float32).view(1, 1, W, 1) + kx + ox
     cols = bilinear_columns(x, py, px, mask, round_weights=bf16_math)
     if bf16_math:
         cols = round_to(cols)
     out = (cols.reshape(B * H * W, 9 * C) @ weight.reshape(9 * C, Co)).view(B, H, W, Co)
     if bias is not None:
         out = out + bias
-    return out
+    return out.to(out_dtype)
+
+
+def modulated_deform_conv_shift(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
+                                weight: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
+                                max_offset: int) -> torch.Tensor:
+    """The clamped DCN as the JAX package's ``modulated_deform_conv_shift``
+    computes it, output in x's dtype.  That op sums, for each tap, the
+    (2R+1)^2 shifted copies of x weighted by hat(oy + ky - dy) * hat(ox + kx
+    - dx): the weight cast to x's dtype, each product and each running sum in
+    x's dtype.  Only the 4 corners of the clamped point have a nonzero
+    weight and adding a zero is exact, so the same roundings come from the 4
+    corners in the op's order (along x, then the two rows), with each weight
+    formed by the op's own f32 arithmetic.  The window sum times the mask is
+    f32 and so is its contraction with W.  Under a float32 x this is
+    ``modulated_deform_conv`` up to the order of the f32 sums."""
+    check_dcn_inputs(x, offset, mask, weight, bias, x_dtypes=COMPUTE_DTYPES)
+    B, H, W, C = x.shape
+    Co = weight.shape[3]
+    R = float(max_offset)
+    dev = x.device
+    x_rows = x.reshape(B * H * W, C)
+    batch_base = torch.arange(B, device=dev).view(B, 1, 1) * (H * W)
+    ys = torch.arange(H, device=dev).view(1, H, 1)
+    xs = torch.arange(W, device=dev).view(1, 1, W)
+
+    def hat(t):
+        return (1.0 - t.abs()).clamp_min(0.0)
+
+    out = None
+    for k in range(9):
+        ky, kx = k // 3 - 1, k % 3 - 1
+        oy = offset[..., 2 * k].clamp(-R, R)
+        ox = offset[..., 2 * k + 1].clamp(-R, R)
+        # the window's rows dy and columns dx that the sample falls between
+        dy0 = torch.floor(oy).detach() + ky
+        dx0 = torch.floor(ox).detach() + kx
+        s = None
+        for dy in (dy0, dy0 + 1):
+            wy = hat(oy + ky - dy)
+            row = None
+            for dx in (dx0, dx0 + 1):
+                w = (wy * hat(ox + kx - dx)).to(x.dtype)
+                yi, xi = ys + dy.long(), xs + dx.long()
+                inside = (yi >= 0) & (yi < H) & (xi >= 0) & (xi < W)
+                idx = batch_base + yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)
+                term = (x_rows.index_select(0, idx.reshape(-1)).view(B, H, W, C)
+                        * (w * inside)[..., None])
+                row = term if row is None else row + term
+            s = row if s is None else s + row
+        part = (s * mask[..., k:k + 1]).reshape(B * H * W, C) @ weight[k // 3, k % 3]
+        out = part if out is None else out + part
+    if bias is not None:
+        out = out + bias
+    return out.view(B, H, W, Co).to(x.dtype)
 
 
 def check_epilogue(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor,
@@ -159,7 +234,7 @@ def modulated_deform_conv_bn_relu(x: torch.Tensor, offset: torch.Tensor, mask: t
     """The DCN with the eval BN+ReLU epilogue, as ``dcn_pallas_v3(...,
     epilogue=(scale, shift))``: relu(DCN(x; no bias) * scale + shift).  The
     caller folds the BN and the conv bias into (scale, shift)."""
-    check_dcn_inputs(x, offset, mask, weight, None)
+    check_dcn_inputs(x, offset, mask, weight, None, x_dtypes=COMPUTE_DTYPES)
     check_epilogue(x, weight, scale, shift)
     y = modulated_deform_conv(x, offset, mask, weight, None, max_offset=max_offset,
                               transfer_dtype=transfer_dtype)

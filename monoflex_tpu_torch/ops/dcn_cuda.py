@@ -41,7 +41,9 @@ none of the three uses atomics, so two launches are bit-equal.  Under
 ``torch.no_grad()`` the forward takes f32 x and rounds it to the bf16
 transfer dtype inside the kernel, bit-equal to casting it first; under
 autograd ``DCNFunction`` casts, because it saves the bf16 x for the
-backward.
+backward.  A bf16 x (a bf16 model's activation) goes to the kernels as it
+is, whatever the transfer dtype: its values are exact in either, and the
+kernels' bf16-x entry (the bf16 transfer's) reads them with no f32 copy.
 
 Every source is compiled by nvcc for sm_90a on first use, one nvcc per source
 started together, into ``_build/<hash>/`` next to the package, where the hash
@@ -63,8 +65,9 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from .dcn import (check_compute_dtype, check_dcn_inputs, check_epilogue, modulated_deform_conv,
-                  modulated_deform_conv_backward, modulated_deform_conv_bn_relu)
+from .dcn import (COMPUTE_DTYPES, check_compute_dtype, check_dcn_inputs, check_epilogue,
+                  modulated_deform_conv, modulated_deform_conv_backward,
+                  modulated_deform_conv_bn_relu)
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(sorted((_PKG / "csrc").glob("*.cu")))
@@ -516,6 +519,18 @@ def dcn_backward(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     return dx, doffset, dmask, dweight, g.sum(dim=(0, 1, 2))
 
 
+def _transfer_x(x: torch.Tensor, transfer_dtype: torch.dtype) -> torch.Tensor:
+    """x as the kernels take it: a bf16 x as it is (exact in either transfer
+    dtype), an f32 x cast to the transfer dtype."""
+    return x if x.dtype == torch.bfloat16 else x.to(transfer_dtype)
+
+
+def _check_bounded(max_offset) -> None:
+    if max_offset is None:
+        raise ValueError("the DCN kernels clamp the offsets: max_offset=None (the unbounded "
+                         "'gather' op) has no kernel; call ops.dcn.modulated_deform_conv")
+
+
 class DCNFunction(torch.autograd.Function):
     """DCNv2 with the kernels' forward and backward (the plain op's on CPU
     tensors).  It saves x already rounded to the transfer dtype (half the
@@ -524,7 +539,7 @@ class DCNFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, offset, mask, weight, bias, max_offset, transfer_dtype, compute_dtype):
         bf16_math = check_compute_dtype(compute_dtype)
-        xt = _math_x(x.to(transfer_dtype), bf16_math)
+        xt = _math_x(_transfer_x(x, transfer_dtype), bf16_math)
         if x.device.type == "cpu":
             out = modulated_deform_conv(xt.float(), offset, mask, weight, bias,
                                         max_offset=max_offset, compute_dtype=compute_dtype)
@@ -550,6 +565,12 @@ class DCNFunction(torch.autograd.Function):
         return dx, doffset, dmask, dweight, dbias if ctx.has_bias else None, None, None, None
 
 
+def _rounds_x(x: torch.Tensor, transfer_dtype: torch.dtype) -> bool:
+    """Whether dcn_fwd rounds x to bf16 as it loads it: an f32 x under bf16
+    transfer (a bf16 x arrives rounded)."""
+    return x.dtype == torch.float32 and transfer_dtype == torch.bfloat16
+
+
 def dcn_forward(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
                 weight: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
                 max_offset: int,
@@ -560,11 +581,12 @@ def dcn_forward(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
 
     CUDA tensors go through the kernels, which take contiguous operands on
     one device, x cast to ``transfer_dtype`` (float32 or bfloat16; bfloat16
-    under ``compute_dtype=bfloat16``, the bf16 window math) and indices that
-    fit in 32 bits.  ``dcn_forward.launches`` (``.bf16_math_launches``)
+    under ``compute_dtype=bfloat16``, the bf16 window math; a bf16 x as it
+    is) and indices that fit in 32 bits.  ``max_offset`` must be a bound.  ``dcn_forward.launches`` (``.bf16_math_launches``)
     counts forward kernel launches.
     """
-    check_dcn_inputs(x, offset, mask, weight, bias)
+    check_dcn_inputs(x, offset, mask, weight, bias, x_dtypes=COMPUTE_DTYPES)
+    _check_bounded(max_offset)
     if transfer_dtype not in _TRANSFER_DTYPES:
         raise ValueError(f"transfer_dtype must be one of {_TRANSFER_DTYPES}, got {transfer_dtype}")
     check_compute_dtype(compute_dtype)
@@ -577,7 +599,7 @@ def dcn_forward(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
         if not needs_grad and compute_dtype == torch.float32:
             # no residual to save: the kernel rounds f32 x to the transfer dtype
             out = _fwd_kernel(x, offset, mask, weight, bias, max_offset,
-                              round_x=transfer_dtype == torch.bfloat16)
+                              round_x=_rounds_x(x, transfer_dtype))
             dcn_forward.launches += 1
             return out
     return DCNFunction.apply(x, offset, mask, weight, bias, max_offset, transfer_dtype,
@@ -593,8 +615,9 @@ def dcn_forward_bn_relu(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tenso
     CPU tensor).  Inference only, as the JAX epilogue has no VJP: it raises
     if autograd would need a gradient of any operand.
     ``dcn_forward_bn_relu.launches`` counts kernel launches."""
-    check_dcn_inputs(x, offset, mask, weight, None)
+    check_dcn_inputs(x, offset, mask, weight, None, x_dtypes=COMPUTE_DTYPES)
     check_epilogue(x, weight, scale, shift)
+    _check_bounded(max_offset)
     if transfer_dtype not in _TRANSFER_DTYPES:
         raise ValueError(f"transfer_dtype must be one of {_TRANSFER_DTYPES}, got {transfer_dtype}")
     operands = (x, offset, mask, weight, scale, shift)
@@ -608,7 +631,7 @@ def dcn_forward_bn_relu(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tenso
     _check_kernel_operands("dcn_fwd", *x.shape, weight.shape[3], x=x, offset=offset, mask=mask,
                            weight=weight, scale=scale, shift=shift)
     out = _fwd_kernel(x, offset, mask, weight, None, max_offset, epilogue=(scale, shift),
-                      round_x=transfer_dtype == torch.bfloat16)
+                      round_x=_rounds_x(x, transfer_dtype))
     dcn_forward_bn_relu.launches += 1
     return out
 

@@ -87,7 +87,7 @@ def test_generations_route_to_the_float32_kernels(setting):
         assert spec.max_offset == cfg.TPU.DCN_MAX_OFFSET and not spec.fuse_bn_relu
 
 
-@pytest.mark.parametrize("impl", ["pallas4", "gather", "none"])
+@pytest.mark.parametrize("impl", ["pallas4"])
 def test_unknown_impls_are_refused(impl):
     cfg = get_cfg_defaults()
     cfg.TPU.DCN_FORCE_IMPL = impl

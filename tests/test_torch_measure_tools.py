@@ -1,13 +1,16 @@
-"""tools/profile_split.py and tools/step_drift.py: the profile's kernel groups
-and busy-time union, step_drift's parameter classes and arguments, and that
-both exit non-zero without a card (they measure the card only)."""
+"""tools/profile_split.py, tools/step_drift.py and tools/bf16_step_spread.py:
+the profile's kernel groups and busy-time union, step_drift's parameter
+classes and arguments, bf16_step_spread's distances, and that each exits
+non-zero without a card (they measure the card only)."""
 
 import os
 import subprocess
 import sys
 
 import pytest
+import torch
 
+from monoflex_tpu_torch.tools.bf16_step_spread import step_distances
 from monoflex_tpu_torch.tools.profile_split import busy_ms, group_of
 from monoflex_tpu_torch.tools.step_drift import PLAIN, feeds_train_bn
 
@@ -54,7 +57,23 @@ def test_step_drift_replaces_each_kernel_by_its_plain_version():
     assert all(callable(getattr(dcn_cuda, attr)) for attr, _ in PLAIN.values())
 
 
-@pytest.mark.parametrize("tool", ["profile_split", "step_drift"])
+def test_step_distances():
+    """Relative errors against the second step; a zero gradient there has
+    no relative error and is left out."""
+    ref = (2.0, {"a": torch.tensor([3.0, 4.0]), "b": torch.tensor([1.0]),
+                 "c": torch.tensor([2.0]), "z": torch.zeros(2)})
+    got = (2.5, {"a": torch.tensor([3.0, 4.5]), "b": torch.tensor([1.5]),
+                 "c": torch.tensor([2.0]), "z": torch.ones(2)})
+    d = step_distances(got, ref)
+    assert d["loss_rel_err"] == 0.25
+    assert d["params"] == 3
+    assert d["grad_worst"] == 0.5 and d["worst_param"] == "b"
+    assert d["grad_median"] == pytest.approx(0.1)
+    with pytest.raises(AssertionError, match="different parameters"):
+        step_distances((2.0, {"a": ref[1]["a"]}), ref)
+
+
+@pytest.mark.parametrize("tool", ["profile_split", "step_drift", "bf16_step_spread"])
 def test_exits_without_a_gpu(tool):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["CUDA_VISIBLE_DEVICES"] = ""

@@ -1,6 +1,7 @@
 """The port stands alone: importing its inference, training (the CLI, the
 loop, checkpoints, launch and data parallelism), evaluation and
-kernel-diagnostics paths (and chip_smoke.py, which drives them on the GPU)
+kernel-diagnostics paths, every model configuration (the dlav0 family, the
+compute-dtype layers) and the DCN offset guard (and chip_smoke.py, which drives them on the GPU)
 loads no jax, flax or triton module, no module of the JAX package
 ``monoflex_tpu``, and builds or loads no kernel library."""
 
@@ -38,14 +39,17 @@ import monoflex_tpu_torch.engine.test_net
 import monoflex_tpu_torch.engine.trainer
 import monoflex_tpu_torch.eval
 import monoflex_tpu_torch.losses.loss_computation
+import monoflex_tpu_torch.models.backbone.dlav0
 import monoflex_tpu_torch.models.detector
 import monoflex_tpu_torch.models.heads.key2channel
+import monoflex_tpu_torch.models.layers
 import monoflex_tpu_torch.ops.dcn_ablate
 import monoflex_tpu_torch.ops.relayout
 import monoflex_tpu_torch.ops.rotated_iou
 import monoflex_tpu_torch.parallel.mesh
 import monoflex_tpu_torch.train.checkpoint
 import monoflex_tpu_torch.train.solver
+import monoflex_tpu_torch.tools.bf16_step_spread
 import monoflex_tpu_torch.tools.fwd_ablate
 import monoflex_tpu_torch.tools.kernel_bench
 import monoflex_tpu_torch.tools.kernel_diag
@@ -54,10 +58,12 @@ import monoflex_tpu_torch.tools.transpose_ablate
 import monoflex_tpu_torch.train.train_step
 import monoflex_tpu_torch.utils.backup_files
 import monoflex_tpu_torch.utils.comm
+import monoflex_tpu_torch.utils.dcn_guard
 import monoflex_tpu_torch.utils.envs
 import monoflex_tpu_torch.utils.logger
 import monoflex_tpu_torch.utils.metric_logger
 import monoflex_tpu_torch.utils.param_bridge
+import monoflex_tpu_torch.utils.precision
 import monoflex_tpu_torch.utils.timer
 from monoflex_tpu_torch.ops import dcn_cuda
 new = sorted(loaded() - before)

@@ -13,8 +13,8 @@ from monoflex_tpu_torch.losses.loss_computation import LossComputer
 from monoflex_tpu_torch.models.detector import build_model
 from monoflex_tpu_torch.train.solver import build_optimizer
 from monoflex_tpu_torch.train.train_step import make_eval_step, make_train_step
-from monoflex_tpu_torch.utils.precision import (apply_precision, current_precision,
-                                                resolve_precision)
+from monoflex_tpu_torch.utils.precision import (apply_precision, compute_dtype,
+                                                current_precision, resolve_precision)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -93,6 +93,26 @@ def test_inference_applies_the_config(restore_flags, tmp_path, monkeypatch):
 
 def test_other_compute_dtypes_raise():
     cfg = tiny_cfg(True)
-    cfg.TPU.COMPUTE_DTYPE = "bfloat16"
-    with pytest.raises(NotImplementedError, match="only float32"):
+    cfg.TPU.COMPUTE_DTYPE = "float16"
+    with pytest.raises(NotImplementedError, match="one of"):
         resolve_precision(cfg)
+
+
+@pytest.mark.parametrize("name,dtype", [("float32", torch.float32), ("bfloat16", torch.bfloat16)])
+def test_bfloat16_keeps_tf32_off(restore_flags, name, dtype):
+    """bf16 is a dtype of modules, not a torch flag: TF32 stays off for the
+    ops that stay f32, and the flags are those of a float32 config."""
+    cfg = tiny_cfg(True)
+    cfg.TPU.COMPUTE_DTYPE = name
+    assert compute_dtype(cfg) == dtype
+    scramble()
+    model = build_model(cfg, device="cpu")
+    assert current_precision() == resolve_precision(tiny_cfg(True)) == model.precision
+    assert not torch.is_autocast_enabled()
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    convs = [m for m in model.modules() if hasattr(m, "compute_dtype")]
+    assert convs and all(m.compute_dtype == dtype for m in model.backbone.modules()
+                         if hasattr(m, "compute_dtype"))
+    head = model.heads["predictor"]
+    assert head.class_head[0].compute_dtype == head.class_head[1].compute_dtype == dtype
+    assert not hasattr(head.class_head[2], "compute_dtype")   # class_out stays f32

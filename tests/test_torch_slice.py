@@ -39,6 +39,7 @@ from monoflex_tpu_torch.models.heads.predictor import build_predictor
 from monoflex_tpu_torch.utils.param_bridge import load_flax_variables
 
 RUN_YAML = os.path.join(os.path.dirname(__file__), "..", "runs", "monoflex.yaml")
+BF16_YAML = os.path.join(os.path.dirname(__file__), "..", "runs", "monoflex_bf16.yaml")
 NARROW_CHANNELS = (8, 8, 16, 24, 32, 48)
 STAGE_R = (2, 1, 1, 1)   # per-stage clamp: ida_0, ida_1, ida_2, ida_up
 H, W, B = 64, 128, 2
@@ -145,10 +146,10 @@ def test_inference_batch_matches_jax_batch_maker():
 
 
 @pytest.mark.parametrize("override", [
-    ("TPU.DCN_FORCE_IMPL", "gather"), ("TPU.DCN_FORCE_IMPL", "pallas4"),
-    ("MODEL.BACKBONE.CONV_BODY", "dla34_nodcn"), ("MODEL.BACKBONE.CONV_BODY", "dlav0"),
-    ("TPU.COMPUTE_DTYPE", "bfloat16")])
+    ("TPU.DCN_FORCE_IMPL", "pallas4"), ("MODEL.BACKBONE.CONV_BODY", "dla35")])
 def test_unserved_configs_raise(override):
+    """An impl the port does not know, and a backbone the JAX package's
+    ``build_backbone`` rejects too."""
     cfg = narrow_cfg("")
     cfg.merge_from_list(list(override))
     with pytest.raises(NotImplementedError):
