@@ -22,7 +22,9 @@ Phases, one line each; any failure exits non-zero and prints no result:
              bf16: max errors against the tolerances, each kernel's two
              launches bit-equal, ms per call of each; then dx at R=8, the
              first stage's clamp under TPU.DCN_MAX_OFFSET_PER_STAGE = (8, 4,
-             2, 2), at that stage's two shapes, the same way.
+             2, 2), at that stage's two shapes, the same way; then dx at
+             R=16, past the reach of its halo of g (its wide path), at the
+             first of them, the same way, beside its bound.
   6. train   the training step on the same model and batch size: one
              warm-up step, then 3 steps that must launch each of the three
              kernels 16 times per step, give 11 finite loss terms and no
@@ -92,7 +94,18 @@ Phases, one line each; any failure exits non-zero and prints no result:
              iteration), "resumed from iteration 20" with count 20, 16 txts
              from the eval.  Prints the loop's img/s, its time and data
              meters and the device idle share of the profile window.
- 11. report  the kernels' JSON line (with each kernel's bound on the card),
+ 11. modules the port's counterparts of the JAX package's last modules, on
+             the card: the C++ KITTI evaluator against the numpy one (equal
+             APs on a 40-frame rendered tree with perturbed ground truth as
+             detections, seconds of each); inference(visualize=True) at
+             384x1280 writing one PNG an image (at most 8); a reference-format
+             .pth of a seeded full-width model loaded into another
+             (utils/weight_import.py), the batch-8 forward bit-equal;
+             dryrun_multichip(1) over NCCL; then as processes a 100-iteration
+             convergence_run on its own 1/4-scale rendered tree (one eval,
+             its table, the CLI's time an iteration at 96x320, batch 4),
+             offset_stats on its checkpoint and flops; PSROI pooling on the card against the CPU.
+ 12. report  the kernels' JSON line (with each kernel's bound on the card),
              the card line, and last the result line
              {"ok": true, "device": {...}}.
 """
@@ -144,6 +157,7 @@ from monoflex_tpu_torch.train.solver import build_optimizer
 from monoflex_tpu_torch.train.train_step import TrainState, make_eval_step, make_train_step
 from monoflex_tpu_torch.utils.dcn_guard import dcn_offset_guard, reroute
 from monoflex_tpu_torch.utils.precision import apply_precision, current_precision
+from monoflex_tpu_torch.utils.weight_import import load_reference_checkpoint
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BATCH = 8
@@ -166,6 +180,9 @@ DCN_SHAPES = [
 # config/defaults.py): its first stage, ida_0, runs at R = 8 at these shapes
 CLAMP_PER_STAGE = (8, 4, 2, 2)
 CLAMP_SHAPES = [(24, 80, 256, 256), (12, 40, 512, 256)]
+# a reach beyond dcn_bwd_dx's halo (ceil(R) > DX_MAX_REACH = 11): its wide
+# path, at ida_0's first shape
+WIDE_R = 16
 # kernel vs plain op on the same bf16-rounded x: both accumulate in f32 and
 # differ only in summation order over 9*C <= 4608 terms of an O(1) output
 KERNEL_TOL = 1e-3
@@ -240,6 +257,12 @@ FWD_ABLATE_VARIANTS = ("full", "nomap", "nobcast", "hoistwx", "fori", "foribf16"
                        "packedh3bf16")
 TRANSPOSE_VARIANTS = ("xla", "dot", "pallas", "pallasT")
 TOOL_ITERS = 3
+# the modules phase: its rendered tree (3 fixture frames and 37 random ones,
+# 8 in val), the short convergence run's iterations, and the PSROI pool on
+# the card against the CPU (float32 bilinear sums of 16 terms, other order)
+MODULES_FRAMES = 40
+MODULES_CONV_ITERS = 100
+PSROI_ATOL = 1e-5
 # the trainer phase: iterations of the first run, its checkpoint interval,
 # the resumed run's end, and the steps the first run profiles
 TRAINER_ITERS, TRAINER_SAVE, TRAINER_RESUME = 20, 10, 30
@@ -652,6 +675,48 @@ def check_backward_clamp() -> None:
                      f"{(n1 + n2) / 2:.4f}); twice bit-equal")
         del x, off, mask, w, gy
         torch.cuda.empty_cache()
+    check_backward_wide()
+
+
+def check_backward_wide() -> None:
+    """dcn_bwd_dx at R = WIDE_R, past its halo's reach, where the kernel's
+    wide path (u = g W^T, then a gather of u without a halo) runs: against
+    the plain backward within BWD_RTOL, twice bit-equal; ms per layer,
+    kernel and plain backward in turns, beside the layer's bound."""
+    H, W, C, Co = CLAMP_SHAPES[0]
+    g = torch.Generator(device="cuda").manual_seed(800)
+    x = torch.randn(BATCH, H, W, C, device="cuda", generator=g).to(torch.bfloat16)
+    # 12 sigma: sources up to 16 pixels away, and some clipped
+    off = torch.randn(BATCH, H, W, 18, device="cuda", generator=g) * 12
+    mask = torch.rand(BATCH, H, W, 9, device="cuda", generator=g)
+    w = torch.randn(3, 3, C, Co, device="cuda", generator=g) / (9 * C) ** 0.5
+    gy = torch.randn(BATCH, H, W, Co, device="cuda", generator=g)
+    shape = (BATCH, H, W, C, Co)
+
+    def kernel():
+        return dcn_cuda.dcn_bwd_dx(x, off, mask, w, gy, max_offset=WIDE_R)
+
+    def plain():
+        return modulated_deform_conv_backward(x.float(), off, mask, w, gy, max_offset=WIDE_R,
+                                              wrt=("x",))[0]
+
+    dx, ref = kernel(), plain()
+    if not torch.equal(dx, kernel()):
+        raise AssertionError(f"dcn_bwd_dx {shape} R={WIDE_R}: two launches differ")
+    err = (dx - ref).abs().max().item()
+    bound = BWD_RTOL * ref.abs().max().item()
+    if not (err <= bound and torch.isfinite(dx).all()):
+        raise AssertionError(f"dx {shape} R={WIDE_R}: max abs err {err} > {bound} "
+                             f"({BWD_RTOL} of max |ref|)")
+    del dx, ref
+    p1, k1, k2, p2 = time_ms(plain, 3), time_ms(kernel, 5), time_ms(kernel, 5), time_ms(plain, 3)
+    bound_ms, bound_by = bound_of(*dcn_work("dx", H, W, C, Co, x.element_size()))
+    phase("bwd", f"wide path: dcn_bwd_dx B,H,W,C,Co={shape} R={WIDE_R} dx_err={err:.3e} "
+                 f"(tol {BWD_RTOL} of max |ref|) dx_ms={(k1 + k2) / 2:.4f} "
+                 f"plain_dx_ms={(p1 + p2) / 2:.4f} bound_ms={bound_ms:.4f} ({bound_by}); "
+                 f"twice bit-equal")
+    del x, off, mask, w, gy
+    torch.cuda.empty_cache()
 
 
 def compare_steps(state: dict, cfg, batch: dict, label: str = "") -> dict:
@@ -1188,17 +1253,18 @@ def run_module(module: str, args, env: dict, log: str):
         return proc, json.load(f)
 
 
-def run_tool(name: str, args, tmp: str):
+def run_tool(name: str, args, tmp: str, label: str = "diag", env=None):
     """``python -m monoflex_tpu_torch.tools.<name> *args`` in its own
     process: its stdout lines and the launch counts it wrote at its end."""
     t0 = time.perf_counter()
-    proc, launches = run_module(f"monoflex_tpu_torch.tools.{name}", args, dict(os.environ),
+    proc, launches = run_module(f"monoflex_tpu_torch.tools.{name}", args,
+                                dict(os.environ) if env is None else env,
                                 os.path.join(tmp, f"{name}.launches.json"))
     lines = proc.stdout.splitlines()
     # tools/trace_time.py takes a trace again when the profiler dropped records
     retraced = proc.stderr.count("lost device records")
-    phase("diag", f"{name} {' '.join(args)}: exit 0 in {time.perf_counter() - t0:.2f} s, "
-                  f"{len(lines)} lines, {retraced} profiler traces taken again")
+    phase(label, f"{name} {' '.join(args)}: exit 0 in {time.perf_counter() - t0:.2f} s, "
+                 f"{len(lines)} lines, {retraced} profiler traces taken again")
     return lines, launches
 
 
@@ -1791,6 +1857,172 @@ def run_configs(card: str) -> dict:
     return out
 
 
+def perturbed_predictions(root: str, out: str, seed: int) -> None:
+    """Detections from the tree's labels: each object perturbed (2D box 3 px,
+    location 0.3 m, rotation 0.1 rad, as tests/test_torch_eval.py does) with
+    a score, and up to 3 false positives an image."""
+    import numpy as np
+
+    classes = ("Car", "Pedestrian", "Cyclist")
+    rng = np.random.RandomState(seed)
+    os.makedirs(out, exist_ok=True)
+    for i in (s.strip() for s in open(os.path.join(root, "ImageSets", "trainval.txt"))):
+        with open(os.path.join(root, "label_2", f"{i}.txt")) as f:
+            objs = [ln.split() for ln in f if ln.split()[0] in classes]
+        with open(os.path.join(out, f"{i}.txt"), "w") as f:
+            for ln in objs:
+                vals = np.array(ln[3:], np.float64)
+                vals[1:5] += rng.randn(4) * 3
+                vals[8:11] += rng.randn(3) * 0.3
+                vals[11] += rng.randn() * 0.1
+                f.write(" ".join(ln[:3] + [f"{v:.2f}" for v in vals]
+                                 + [f"{rng.uniform(0.3, 1):.4f}"]) + "\n")
+            for _ in range(rng.randint(0, 4)):
+                x, z, u = rng.uniform(-10, 10), rng.uniform(5, 50), rng.uniform(0, 1100)
+                f.write(f"{classes[rng.randint(3)]} 0 0 0.1 {u:.2f} 150.00 {u + 60:.2f} 220.00 "
+                        f"1.50 1.60 3.90 {x:.2f} 1.60 {z:.2f} 0.30 {rng.uniform(0, 0.6):.4f}\n")
+
+
+def run_modules(card: str) -> dict:
+    """The modules phase: the port's counterparts of the JAX package's last
+    modules on the card (see the module docstring); returns its seconds."""
+    import numpy as np
+
+    from monoflex_tpu_torch import native
+    from monoflex_tpu_torch.eval import evaluate_python
+    from monoflex_tpu_torch.ops.psroi import deform_psroi_pooling
+    from monoflex_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="monoflex_modules_") as tmp:
+        # the C++ evaluator against the numpy one
+        t0 = time.perf_counter()
+        root = make_synthetic_kitti(os.path.join(tmp, "kitti", "training"),
+                                    n_random_frames=MODULES_FRAMES - 3, render=True)
+        pred = os.path.join(tmp, "pred")
+        perturbed_predictions(root, pred, seed=5)
+        args = (os.path.join(root, "label_2"), pred,
+                os.path.join(root, "ImageSets", "trainval.txt"), ("Car", "Pedestrian", "Cyclist"))
+        phase("modules", f"tree of {MODULES_FRAMES} rendered frames (1242x375) in "
+                         f"{time.perf_counter() - t0:.2f} s")
+        if native.evaluator_path() != "native":
+            raise AssertionError("the KITTI evaluator did not load its C++ library")
+        t0 = time.perf_counter()
+        text, ap = evaluate_python(*args)
+        t_native = time.perf_counter() - t0
+        with native.numpy_only():
+            t0 = time.perf_counter()
+            np_text, np_ap = evaluate_python(*args)
+            t_numpy = time.perf_counter() - t0
+        if text != np_text or ap != np_ap or not 0 < ap["Car_3d_0.50/moderate"] < 100:
+            raise AssertionError("the C++ evaluator's APs differ from the numpy one's")
+        phase("modules", f"evaluator on {MODULES_FRAMES} frames of perturbed ground truth: "
+                         f"native {t_native:.3f} s, numpy {t_numpy:.3f} s "
+                         f"({t_numpy / t_native:.2f}x); {len(ap)} APs equal "
+                         f"(Car_3d_0.50/moderate {ap['Car_3d_0.50/moderate']:.4f})")
+
+        # inference(visualize=True) at full width
+        cfg = config_of("monoflex.yaml", "DATASETS.TEST_SPLIT", "val", "TEST.IMS_PER_BATCH", str(BATCH),
+                        "TEST.VISUALIZE_THRESHOLD", "0.0")
+        t0 = time.perf_counter()
+        model = build_model(cfg, device="cuda", seed=0)
+        perturb_offset_convs(model, seed=1)
+        dataset = KITTIDataset(cfg, root, is_train=False)
+        out = inference(cfg, make_eval_step(model, PostProcessor(cfg)), dataset,
+                        os.path.join(tmp, "vis_run"), visualize=True, device="cuda")
+        pngs = sorted(os.listdir(os.path.join(tmp, "vis_run", "vis")))
+        txts = os.listdir(os.path.join(tmp, "vis_run", "data"))
+        if len(pngs) != min(8, len(dataset)) or len(txts) != len(dataset) or not finite(
+                out["Car_3d_0.50/moderate"]):
+            raise AssertionError(f"inference(visualize=True) wrote {pngs} for {len(dataset)} "
+                                 f"images")
+        phase("modules", f"inference(visualize=True) on {len(dataset)} images: {len(pngs)} PNGs "
+                         f"in {time.perf_counter() - t0:.2f} s")
+
+        # a reference-format checkpoint of a seeded full-width model
+        ref_cfg = config_of("monoflex.yaml", "CUDNN_BENCHMARK", "False")
+        source = build_model(ref_cfg, device="cuda", seed=5)
+        perturb_offset_convs(source, seed=6)
+        path = os.path.join(tmp, "reference.pth")
+        torch.save({"model": {f"module.{k}": v for k, v in source.state_dict().items()},
+                    "iteration": 0}, path)
+        target = build_model(ref_cfg, device="cuda", seed=7)
+        report = load_reference_checkpoint(target, path)
+        batch = {k: torch.from_numpy(v).cuda() for k, v in make_inference_batch(BATCH).items()}
+        maps = []
+        for m in (source, target):
+            maps.append(head_maps(m.eval(), batch))
+        equal = all(torch.equal(a, b) for a, b in zip(
+            [maps[0]["cls"], *maps[0]["reg"]], [maps[1]["cls"], *maps[1]["reg"]]))
+        if not equal or report.missing or report.unexpected:
+            raise AssertionError(f"reference checkpoint: {report}; head maps bit-equal {equal}")
+        phase("modules", f"reference checkpoint ({os.path.getsize(path) / 1e6:.1f} MB): {report}; "
+                         f"the batch-{BATCH} 384x1280 forward bit-equal to the source model's")
+        del source, target, maps, model
+        torch.cuda.empty_cache()
+
+        # one full training step over NCCL at world size 1
+        t0 = time.perf_counter()
+        total = dryrun_multichip(1, device="cuda")
+        phase("modules", f"dryrun_multichip(1) over NCCL: total_loss={total:.4f} in "
+                         f"{time.perf_counter() - t0:.2f} s")
+
+        # the convergence gate, short, then offset_stats and flops, as processes
+        # (its own tree: the JAX tool's 1/4-scale rendered frames, at 96x320)
+        conv_root = os.path.join(tmp, "conv_data")
+        env = {**os.environ, "MONOFLEX_DATA_DIR": conv_root}
+        env.pop("MONOFLEX_PLATFORM", None)
+        conv_out = os.path.join(tmp, "conv_run")
+        proc, _ = run_module("monoflex_tpu_torch.tools.convergence_run",
+                             ["--root", conv_root, "--output", conv_out, "--frames",
+                              str(MODULES_FRAMES), "--iters", str(MODULES_CONV_ITERS),
+                              "--eval-interval", str(MODULES_CONV_ITERS)], env,
+                             os.path.join(tmp, "conv.json"))
+        table = [ln for ln in proc.stdout.splitlines() if ln.startswith("| ")]
+        if len(table) != 2 or not table[1].startswith(f"| {MODULES_CONV_ITERS} |"):
+            raise AssertionError(f"convergence_run printed no table:\n{proc.stdout[-2000:]}")
+        windows = [float(m.group(1)) for m in re.finditer(r"iter \d+/\d+ .*?time: (\S+) ",
+                                                          proc.stdout)]
+        phase("modules", f"convergence_run --iters {MODULES_CONV_ITERS} on {card}: exit 0; "
+                         f"the CLI at 96x320, batch 4: {windows[-1] * 1e3:.1f} ms an iteration "
+                         f"(last window of 10); table {table[1]}")
+        lines, _ = run_tool("offset_stats", ["--config", os.path.join(ROOT, "runs",
+                                                                       "monoflex.yaml"),
+                                             "--ckpt", os.path.join(conv_out, "ckpt",
+                                                                    "model_final"),
+                                             "--max_batches", "2", "INPUT.HEIGHT_TEST", "96",
+                                             "INPUT.WIDTH_TEST", "320"], tmp, "modules", env)
+        rows = [json.loads(ln) for ln in lines[1:]]
+        if not lines[0].startswith("DCN |offset| stats over 2 batches") or len(rows) != 16:
+            raise AssertionError(f"offset_stats printed {lines[:3]}")
+        lines, _ = run_tool("flops", [], tmp, "modules", env)
+        flops = json.loads("\n".join(lines))
+        if not (finite(flops["fwd_gflops_per_img"]) and flops["train_gflops_per_img"]
+                > 2 * flops["fwd_gflops_per_img"] > 0):
+            raise AssertionError(f"flops printed {flops}")
+        phase("modules", f"offset_stats: 16 layers, ida_0/proj_1 p99 {rows[1]['p99']}; flops: "
+                         f"forward {flops['fwd_gflops_per_img']} GFLOP/img, train step "
+                         f"{flops['train_gflops_per_img']} GFLOP/img")
+
+    # PSROI pooling on the card against the CPU
+    g = torch.Generator().manual_seed(9)
+    x = torch.randn(2, 24, 80, 3 * 49, generator=g)
+    xy = torch.rand(6, 2, generator=g) * 60
+    rois = torch.cat([torch.randint(0, 2, (6, 1), generator=g).float(), xy,
+                      xy + 4 + torch.rand(6, 2, generator=g) * 40], dim=1)
+    trans = torch.randn(6, 7, 7, 2, generator=g)
+    kw = dict(spatial_scale=0.25, output_dim=3, group_size=7, pooled_size=7)
+    cpu = deform_psroi_pooling(x, rois, trans, **kw)
+    gpu = deform_psroi_pooling(x.cuda(), rois.cuda(), trans.cuda(), **kw).cpu()
+    err = (gpu - cpu).abs().max().item()
+    if not err <= PSROI_ATOL:
+        raise AssertionError(f"psroi on the card vs the CPU: {err} > {PSROI_ATOL}")
+    seconds = time.perf_counter() - t_phase
+    phase("modules", f"psroi (6 rois, 7x7 parts) card vs CPU max abs err {err:.3e} (tol "
+                     f"{PSROI_ATOL}); phase {seconds:.1f} s")
+    return {"seconds": seconds}
+
+
 @contextlib.contextmanager
 def watchdog(name: str, seconds: float):
     """End the process with a message if the phase runs past ``seconds``: a
@@ -1904,6 +2136,8 @@ def main() -> None:
         configs = run_configs(card)
     with watchdog("trainer", 400):
         trainer = run_trainer(card)
+    with watchdog("modules", 300):
+        run_modules(card)
     phase("report", f"inference slice dcn_fwd launches {slice_launches}; train phase "
                     + " ".join(f"{k}={v}" for k, v in train["launches"].items())
                     + f"; configs phase: bf16 forwards dcn_fwd={configs['bf16']['forward']}, "

@@ -608,7 +608,279 @@ int dispatch(int hc, int bn, const float* off, const float* m, const __nv_bfloat
   return bn == 64 ? run(launch<kBf16Math, 16, 64>) : run(launch<kBf16Math, 16, 128>);
 }
 
+// ---------------------------------------------------------------------------
+// The wide path: R' = ceil(R) > 11, where the halo of g no longer fits a
+// block's shared memory (ops/dcn_cuda.py::DX_MAX_REACH).  No halo: three
+// kernels, each sum in a fixed order, so two launches are bit-equal.
+//
+//  1. dx_wide_code_kernel: for every (source pixel p, tap k) the floor of the
+//     sample point relative to the tap's integer point, (fy - ty, fx - tx) in
+//     [-R', R'], one signed byte each (so R' <= 127, kWideMaxReach).
+//  2. dx_wide_u_kernel: u[p, k, :] = W_k g(p) (u = g W^T over the (9 C, Co)
+//     view of W), an f32 product on the CUDA cores, tiled 64 x 64 with 16
+//     output-gradient channels a step, each sum over Co in order.  The plain
+//     backward (ops/dcn.py::modulated_deform_conv_backward) contracts first
+//     too; so does the plain version of this path,
+//     ops/dcn.py::modulated_deform_conv_dx_wide.
+//  3. dx_wide_gather_kernel: dx[q, c] = sum over the (k, e, f) in [0, 9) x
+//     [-R', R']^2, in that order, of wt_k(p -> q) u[p, k, c], p = q - (ky +
+//     e, kx + f).  A block owns 32 output pixels (4 x 8) x 128 input
+//     channels.  Each warp tests its pixels' candidates 32 at a time straight
+//     from the floor codes in device memory (one 2-byte load a candidate); a
+//     ballot compacts the hits, in candidate order, into the pixel's list in
+//     shared memory (weight formed at the source as the forward forms it,
+//     and the row of u); a full list pauses the scan at a 32-candidate
+//     boundary, the block walks the lists (each thread one channel of 16
+//     pixels, u read 512 contiguous bytes a row) and the scan resumes, so a
+//     pixel may take any number of hits.
+//
+// Under bf16 window math g, W and each corner weight times the mask are
+// rounded to bf16 and the sums are f32, as in the halo path.
+//
+// What bounds it: the candidate tests, 9 (2R'+1)^2 a pixel for every
+// 128-channel tile of C (9801 at R' = 16), from L1 and L2; the product is
+// 2 * 9 * C * Co a pixel on the CUDA cores; u is 9 C floats a pixel, written
+// once and read back once for each hit.
+
+constexpr int kWideMaxReach = 127;   // the floor codes are signed bytes
+constexpr int kWideTH = 4;           // gather tile rows
+constexpr int kWideTW = 8;           // gather tile columns
+constexpr int kWidePix = kWideTH * kWideTW;
+constexpr int kWideCB = 128;         // input channels a gather block
+constexpr int kWideThreads = 256;    // 8 warps: 4 pixels each in the scan
+constexpr int kWideList = 64;        // a pixel's list: at least one batch of 32
+
+__global__ void dx_wide_code_kernel(const float* __restrict__ offset,
+                                    int16_t* __restrict__ code, int H, int W, long long n,
+                                    float R) {
+  const long long t = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+  if (t >= n) return;
+  const long long pix = t / 9;
+  const int k = static_cast<int>(t % 9);
+  const int hy = static_cast<int>((pix / W) % H);
+  const int hx = static_cast<int>(pix % W);
+  const int ty = hy + k / 3 - 1;
+  const int tx = hx + k % 3 - 1;
+  const float oy = fminf(fmaxf(offset[pix * 18 + 2 * k], -R), R);
+  const float ox = fminf(fmaxf(offset[pix * 18 + 2 * k + 1], -R), R);
+  const int fy = static_cast<int>(floorf(static_cast<float>(ty) + oy)) - ty;
+  const int fx = static_cast<int>(floorf(static_cast<float>(tx) + ox)) - tx;
+  code[t] = static_cast<int16_t>((fy & 0xFF) | (fx << 8));
+}
+
+// u (npix, 9 C) = g (npix, Co) x W^T, W viewed as (9 C, Co); 256 threads a
+// 64 x 64 tile of u, 4 x 4 a thread, 16 channels of Co a step
+template <bool kBf16Math>
+__global__ void __launch_bounds__(256)
+dx_wide_u_kernel(const float* __restrict__ g, const float* __restrict__ w,
+                 float* __restrict__ u, long long npix, int N, int Co) {
+  __shared__ float sg[16][64 + 4];
+  __shared__ float sw[16][64 + 4];
+  const int tid = threadIdx.x;
+  const long long m0 = static_cast<long long>(blockIdx.x) * 64;
+  const int n0 = blockIdx.y * 64;
+  const int tm = tid / 16;   // rows 4 tm .. + 3 of the tile
+  const int tn = tid % 16;   // columns 4 tn .. + 3
+  float acc[4][4] = {};
+  for (int k0 = 0; k0 < Co; k0 += 16) {
+    for (int i = tid; i < 64 * 16; i += 256) {
+      const int r = i / 16;
+      const int kk = i % 16;
+      const long long m = m0 + r;
+      const int n = n0 + r;
+      float a = (m < npix && k0 + kk < Co) ? g[m * Co + k0 + kk] : 0.f;
+      float b = (n < N && k0 + kk < Co) ? w[static_cast<long long>(n) * Co + k0 + kk] : 0.f;
+      if constexpr (kBf16Math) {
+        a = sm90::bf16_round(a);
+        b = sm90::bf16_round(b);
+      }
+      sg[kk][r] = a;
+      sw[kk][r] = b;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < 16; ++kk) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a[i] = sg[kk][4 * tm + i];
+        b[i] = sw[kk][4 * tn + i];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const long long m = m0 + 4 * tm + i;
+    if (m >= npix) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + 4 * tn + j;
+      if (n < N) u[m * N + n] = acc[i][j];
+    }
+  }
+}
+
+template <bool kBf16Math>
+__global__ void __launch_bounds__(kWideThreads)
+dx_wide_gather_kernel(const int16_t* __restrict__ code, const float* __restrict__ offset,
+                      const float* __restrict__ mask, const float* __restrict__ u,
+                      float* __restrict__ dx, int H, int W, int C, float R, int reach) {
+  __shared__ float s_w[kWidePix][kWideList];
+  __shared__ int s_row[kWidePix][kWideList];   // (p * 9 + k): the row of u
+  __shared__ int s_count[kWidePix];
+  __shared__ int s_cursor[kWidePix];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int tiles_x = (W + kWideTW - 1) / kWideTW;
+  const int tiles_y = (H + kWideTH - 1) / kWideTH;
+  const int x0 = (blockIdx.x % tiles_x) * kWideTW;
+  const int y0 = ((blockIdx.x / tiles_x) % tiles_y) * kWideTH;
+  const int b = blockIdx.x / (tiles_x * tiles_y);
+  const int D = 2 * reach + 1;
+  const int DD = D * D;
+  const int n_cand = 9 * DD;
+  if (tid < kWidePix) s_cursor[tid] = 0;
+  // the walk: channel c of pixels 16 (tid / 128) .. + 15
+  const int c = blockIdx.y * kWideCB + (tid % kWideCB);
+  const int pix0 = (tid / kWideCB) * (kWidePix / 2);
+  float acc[kWidePix / 2];
+#pragma unroll
+  for (int i = 0; i < kWidePix / 2; ++i) acc[i] = 0.f;
+  __syncthreads();
+  while (true) {
+    // ---- the scan: warp w's pixels 4 w .. 4 w + 3, from where each paused ----
+    bool paused = false;
+    for (int i = 0; i < 4; ++i) {
+      const int pi = 4 * warp + i;
+      const int qy = y0 + pi / kWideTW;
+      const int qx = x0 + pi % kWideTW;
+      const bool q_in = qy < H && qx < W;
+      int cursor = q_in ? s_cursor[pi] : n_cand;
+      int count = 0;
+      for (; cursor < n_cand; cursor += 32) {
+        const int ci = cursor + lane;
+        bool hit = false;
+        float wt = 0.f;
+        int row = 0;
+        if (ci < n_cand) {
+          const int k = ci / DD;
+          const int r = ci - k * DD;
+          const int e = r / D - reach;
+          const int f = r - (r / D) * D - reach;
+          const int py = qy - (k / 3 - 1) - e;
+          const int px = qx - (k % 3 - 1) - f;
+          if (py >= 0 && py < H && px >= 0 && px < W) {
+            const long long p = (static_cast<long long>(b) * H + py) * W + px;
+            const int cd = code[p * 9 + k];
+            const int dy = e - static_cast<int>(static_cast<int8_t>(cd & 0xFF));
+            const int dxc = f - (cd >> 8);
+            if (((dy | dxc) & ~1) == 0) {
+              // the corner (dy, dxc) of p's tap-k sample lands on q: its
+              // weight as the forward forms it
+              const int ty = py + k / 3 - 1;
+              const int tx = px + k % 3 - 1;
+              const float sy = static_cast<float>(ty) +
+                               fminf(fmaxf(offset[p * 18 + 2 * k], -R), R);
+              const float sx = static_cast<float>(tx) +
+                               fminf(fmaxf(offset[p * 18 + 2 * k + 1], -R), R);
+              const float ly = sy - floorf(sy);
+              const float lx = sx - floorf(sx);
+              wt = (dy ? ly : 1.f - ly) * (dxc ? lx : 1.f - lx) * mask[p * 9 + k];
+              if constexpr (kBf16Math) wt = sm90::bf16_round(wt);
+              hit = wt != 0.f;
+              row = static_cast<int>(p * 9 + k);
+            }
+          }
+        }
+        const unsigned ballot = __ballot_sync(0xffffffffu, hit);
+        const int n = __popc(ballot);
+        if (count + n > kWideList) break;   // the list is full: resume here
+        if (hit) {
+          const int pos = count + __popc(ballot & ((1u << lane) - 1u));
+          s_w[pi][pos] = wt;
+          s_row[pi][pos] = row;
+        }
+        count += n;
+      }
+      if (lane == 0) {
+        s_count[pi] = count;
+        s_cursor[pi] = cursor;
+      }
+      paused |= cursor < n_cand;
+    }
+    // a pixel paused on a full list: the block scans again after the walk
+    const bool more = __syncthreads_or(paused);
+    // ---- the walk: each thread its channel of 16 pixels, in list order ----
+    if (c < C) {
+#pragma unroll 1
+      for (int i = 0; i < kWidePix / 2; ++i) {
+        const int pi = pix0 + i;
+        const int n = s_count[pi];
+        float a = acc[i];
+        for (int j = 0; j < n; ++j)
+          a = fmaf(s_w[pi][j], u[static_cast<long long>(s_row[pi][j]) * C + c], a);
+        acc[i] = a;
+      }
+    }
+    __syncthreads();   // the lists are read before the next scan writes them
+    if (!more) break;
+  }
+  if (c >= C) return;
+#pragma unroll
+  for (int i = 0; i < kWidePix / 2; ++i) {
+    const int pi = pix0 + i;
+    const int qy = y0 + pi / kWideTW;
+    const int qx = x0 + pi % kWideTW;
+    if (qy < H && qx < W) dx[((static_cast<long long>(b) * H + qy) * W + qx) * C + c] = acc[i];
+  }
+}
+
+template <bool kBf16Math>
+int launch_wide(const float* off, const float* m, const float* w, const float* g,
+                int16_t* code, float* u, float* dx, int B, int H, int W, int C, int Co,
+                float R, int reach, cudaStream_t s) {
+  const long long npix = static_cast<long long>(B) * H * W;
+  const long long ncode = npix * 9;
+  dx_wide_code_kernel<<<static_cast<unsigned>((ncode + 255) / 256), 256, 0, s>>>(
+      off, code, H, W, ncode, R);
+  const int N = 9 * C;
+  dx_wide_u_kernel<kBf16Math><<<dim3(static_cast<unsigned>((npix + 63) / 64), (N + 63) / 64),
+                                256, 0, s>>>(g, w, u, npix, N, Co);
+  const dim3 grid(B * ((H + kWideTH - 1) / kWideTH) * ((W + kWideTW - 1) / kWideTW),
+                  (C + kWideCB - 1) / kWideCB);
+  dx_wide_gather_kernel<kBf16Math><<<grid, kWideThreads, 0, s>>>(code, off, m, u, dx, H, W, C,
+                                                                 R, reach);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// The wide path (R' = ceil(max_offset) in 12 .. 127): the floor codes into
+// `code` (scratch of B*H*W*9 int16), u into `u` (scratch of B*H*W*9*C f32),
+// then dx, all on `stream`; returns the CUDA error (0 on success).  The
+// caller checks shapes, dtypes, devices and contiguity, and that B*H*W*9
+// fits in 32 bits; a reach outside 0 .. 127 returns cudaErrorInvalidValue
+// before anything launches.
+extern "C" int dcn_bwd_dx_wide(int bf16_math, const void* offset, const void* mask,
+                               const void* weight, const void* g, void* code, void* u, void* dx,
+                               int B, int H, int W, int C, int Co, float max_offset, int reach,
+                               void* stream) {
+  if (reach < 0 || reach > kWideMaxReach) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto run = [&](auto launch_fn) {
+    return launch_fn(static_cast<const float*>(offset), static_cast<const float*>(mask),
+                     static_cast<const float*>(weight), static_cast<const float*>(g),
+                     static_cast<int16_t*>(code), static_cast<float*>(u),
+                     static_cast<float*>(dx), B, H, W, C, Co, max_offset, reach, s);
+  };
+  return bf16_math ? run(launch_wide<true>) : run(launch_wide<false>);
+}
 
 // Lays out W (9, C, Co) f32 into w_img (scratch of 9 * ceil(Co/64) *
 // ceil(C/bn) * parts * bn * 64 bf16, ops/dcn_cuda.py::dx_image_numel, where

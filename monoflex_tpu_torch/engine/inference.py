@@ -94,6 +94,42 @@ def run_diagnostics(cfg, model: torch.nn.Module, loader, logger: logging.Logger,
     return results
 
 
+def visualize_predictions(cfg, eval_step: Callable, loader, output_dir: str,
+                          max_images: int = 8, device="cuda") -> int:
+    """Render detection overlays of at most ``max_images`` images to
+    ``output_dir/<id>.png`` (``utils/visualizer.py``; reference:
+    engine/visualize_infer.py), with the ground truth where the batch has
+    it; returns how many were written."""
+    from ..core.geometry_np import Calibration
+    from ..utils.visualizer import show_image_with_boxes
+
+    os.makedirs(output_dir, exist_ok=True)
+    gt_fields = ("reg_mask", "gt_bboxes", "dimensions", "locations", "rotys")
+    count = 0
+    for batch in loader:
+        result, valid, extras = eval_step(to_device(batch, device))
+        result, valid = result.cpu().numpy(), valid.cpu().numpy()
+        host = {k: extras[k].float().cpu().numpy() for k in ("keypoints", "points", "heatmap")
+                if k in extras}
+        has_gt = all(k in batch for k in gt_fields)
+        for i in range(result.shape[0]):
+            if count >= max_images:
+                return count
+            if int(batch["image_id"][i]) < 0:
+                continue
+            show_image_with_boxes(
+                batch["image"][i], result[i], valid[i], Calibration(batch["calib_P"][i]),
+                score_threshold=cfg.TEST.VISUALIZE_THRESHOLD,
+                heatmap=host["heatmap"][i] if "heatmap" in host else None,
+                targets={k: batch[k][i] for k in gt_fields} if has_gt else None,
+                keypoints=host["keypoints"][i] if "keypoints" in host else None,
+                centers=host["points"][i] if "points" in host else None,
+                pad_size=batch["pad_size"][i], down_ratio=cfg.MODEL.BACKBONE.DOWN_RATIO,
+                save_path=os.path.join(output_dir, f"{int(batch['image_id'][i]):06d}.png"))
+            count += 1
+    return count
+
+
 def inference(cfg, eval_step: Callable, dataset, output_dir: str, metrics=("R40",),
               logger: Optional[logging.Logger] = None, output_depth: Optional[str] = None,
               model: Optional[torch.nn.Module] = None, visualize: bool = False,
@@ -101,10 +137,10 @@ def inference(cfg, eval_step: Callable, dataset, output_dir: str, metrics=("R40"
     """Decode the dataset into ``output_dir/data``, run the diagnostics when
     TEST.EVAL_DEPTH / EVAL_DIS_IOUS ask (and ``model`` is given), and return
     the official AP of each metric with the sweep's stats.  A root without
-    ``label_2`` (a KITTI submission) gets the txts and no AP.  Every process
-    calls it; ranks other than 0 return their shard's stats."""
-    if visualize:
-        raise NotImplementedError("visualize: utils/visualizer.py is not ported")
+    ``label_2`` (a KITTI submission) gets the txts and no AP.  With
+    ``visualize`` rank 0 also draws the first 8 images' detections into
+    ``output_dir/vis``.  Every process calls it; ranks other than 0 return
+    their shard's stats."""
     apply_precision(cfg)
     logger = logger or logging.getLogger("monoflex.inference")
     batch_size = max(1, cfg.TEST.IMS_PER_BATCH)
@@ -119,6 +155,11 @@ def inference(cfg, eval_step: Callable, dataset, output_dir: str, metrics=("R40"
     if model is not None and (cfg.TEST.EVAL_DEPTH or cfg.TEST.EVAL_DIS_IOUS):
         loader = make_test_loader(cfg, dataset, batch_size=batch_size)
         stats.update(run_diagnostics(cfg, model, loader, logger, device=device))
+    if visualize:
+        loader = make_test_loader(cfg, dataset, batch_size=batch_size)
+        n = visualize_predictions(cfg, eval_step, loader, os.path.join(output_dir, "vis"),
+                                  device=device)
+        logger.info(f"wrote {n} visualization images")
 
     label_dir = os.path.join(dataset.root, "label_2")
     split_file = os.path.join(dataset.root, "ImageSets", f"{dataset.split}.txt")

@@ -8,8 +8,8 @@ greedy TP matching, AOS, and the four metrics (bbox / bev / 3d / aos).
 
 The matching loop is intentionally a near-literal port of the official
 semantics (which are subtle and order-dependent); the hot overlap kernels
-live in rotate_iou.py.  Numpy only: the JAX package's optional C++ fast path
-is not part of the port.
+live in rotate_iou.py (numpy, with the C++ fast path of
+monoflex_tpu_torch.native where g++ is found).
 """
 
 from __future__ import annotations
@@ -247,7 +247,18 @@ def eval_class(gt_annos, dt_annos, current_classes, difficultys, metric,
                 if len(thresholds) == 0:
                     continue
                 pr = np.zeros([len(thresholds), 4])
+                from ..native import compute_statistics_thresholds_native, load_native
+
+                use_native = load_native() is not None
                 for i in range(len(gt_annos)):
+                    if use_native:
+                        pr += compute_statistics_thresholds_native(
+                            overlaps[i], dt_datas_list[i][:, -1],
+                            dt_datas_list[i][:, 4], gt_datas_list[i][:, 4],
+                            dt_datas_list[i][:, :4], ignored_gts[i],
+                            ignored_dets[i], dontcares[i], metric, min_overlap,
+                            thresholds, compute_aos)
+                        continue
                     for t, thresh in enumerate(thresholds):
                         tp, fp, fn, similarity, _ = compute_statistics(
                             overlaps[i], gt_datas_list[i], dt_datas_list[i],

@@ -3,8 +3,9 @@
 Replaces the reference's numba-CUDA polygon-clipping kernel
 (reference: data/datasets/evaluation/kitti_object_eval_python/rotate_iou.py:18-333)
 with a numpy Sutherland-Hodgman implementation plus an axis-aligned bounds
-prefilter.  The JAX package can swap in a C++ version with the same
-semantics; the port has only this one.
+prefilter.  A C++ version with identical semantics is loaded through
+``monoflex_tpu_torch.native`` where g++ is found; this file is the numpy
+path and the test oracle.
 
 Box format: (cx, cy, w, h, angle) in an arbitrary consistent 2-D frame (the
 evaluator passes (x, z, l, w, ry) camera-BEV boxes).
@@ -86,6 +87,11 @@ def rotate_iou_eval(boxes: np.ndarray, qboxes: np.ndarray,
     if N == 0 or K == 0:
         return out
 
+    from ..native import load_native, rotate_iou_eval_native
+
+    if load_native() is not None:
+        return rotate_iou_eval_native(boxes, qboxes, criterion)
+
     corners_a = box_corners(boxes)
     corners_b = box_corners(qboxes)
     # axis-aligned prefilter
@@ -123,6 +129,12 @@ def d3_box_overlap(boxes: np.ndarray, qboxes: np.ndarray,
     intersection x height overlap (y is the bottom face, height extends up,
     i.e. towards smaller y)
     (reference: kitti_object_eval_python/eval.py:119-152)."""
+    from ..native import d3_box_overlap_native, load_native
+
+    if load_native() is not None and boxes.shape[0] and qboxes.shape[0]:
+        return d3_box_overlap_native(np.asarray(boxes, np.float64),
+                                     np.asarray(qboxes, np.float64), criterion)
+
     rinc = rotate_iou_eval(boxes[:, [0, 2, 3, 5, 6]], qboxes[:, [0, 2, 3, 5, 6]], 2)
     N, K = rinc.shape
     out = np.zeros_like(rinc)

@@ -346,3 +346,55 @@ def modulated_deform_conv_dx_mirrored(offset: torch.Tensor, mask: torch.Tensor,
                 z = z + _shifted(wt[..., None] * g, ky + e, kx + f)
         dx = dx + z @ weight[ky + 1, kx + 1].T
     return dx
+
+
+def modulated_deform_conv_dx_wide(offset: torch.Tensor, mask: torch.Tensor,
+                                  weight: torch.Tensor, g: torch.Tensor, *,
+                                  max_offset: int,
+                                  compute_dtype: torch.dtype = torch.float32
+                                  ) -> torch.Tensor:
+    """dx of ``modulated_deform_conv`` for the output gradient g (B,H,W,Co), by
+    the algorithm of ``csrc/dcn_bwd_dx.cu``'s wide path (ceil(R) > 11): the
+    contraction first, u_k = g W_k^T (B,H,W,C) for each tap k, then the
+    mirrored gather of u,
+
+        dx[q] = sum_k sum_{e,f in [-R',R']} wt_k(p -> q) u_k(p),  p = q - (ky + e, kx + f),
+
+    summed in (k, e, f) order, with the corner weights formed at the source
+    as the forward forms them (0 where no corner of p's tap-k sample lands on
+    q).  Under ``compute_dtype=bfloat16`` g, W and each corner weight are
+    rounded to bf16 and the sums are float32.  The same function as
+    ``modulated_deform_conv_backward(..., wrt=("x",))``; the tests hold the
+    two together.  Not on any model path."""
+    bf16_math = check_compute_dtype(compute_dtype)
+    B, H, W, Co = g.shape
+    C = weight.shape[2]
+    R = float(max_offset)
+    reach = math.ceil(R)
+    dev = g.device
+    if bf16_math:
+        g, weight = g.to(torch.bfloat16).float(), weight.to(torch.bfloat16).float()
+    k = torch.arange(9, device=dev)
+    ty = torch.arange(H, device=dev, dtype=torch.float32).view(1, H, 1, 1) + (k // 3 - 1).float()
+    tx = torch.arange(W, device=dev, dtype=torch.float32).view(1, 1, W, 1) + (k % 3 - 1).float()
+    py = ty + offset[..., 0::2].clamp(-R, R)                         # (B,H,W,9)
+    px = tx + offset[..., 1::2].clamp(-R, R)
+    ly, lx = py - torch.floor(py), px - torch.floor(px)
+    dy0, dx0 = torch.floor(py) - ty, torch.floor(px) - tx            # in [-R', R']
+    dx = torch.zeros(B, H, W, C, device=dev, dtype=torch.float32)
+    for tap in range(9):
+        ky, kx = tap // 3 - 1, tap % 3 - 1
+        u = g @ weight[ky + 1, kx + 1].T                              # (B,H,W,C)
+        for e in range(-reach, reach + 1):
+            dy = e - dy0[..., tap]
+            wy = torch.where(dy == 1, ly[..., tap], 1.0 - ly[..., tap])
+            for f in range(-reach, reach + 1):
+                dxc = f - dx0[..., tap]
+                wx = torch.where(dxc == 1, lx[..., tap], 1.0 - lx[..., tap])
+                wt = wy * wx * mask[..., tap]
+                if bf16_math:
+                    wt = wt.to(torch.bfloat16).float()
+                hit = ((dy == 0) | (dy == 1)) & ((dxc == 0) | (dxc == 1))
+                wt = torch.where(hit, wt, torch.zeros_like(wt))
+                dx = dx + _shifted(wt[..., None] * u, ky + e, kx + f)
+    return dx

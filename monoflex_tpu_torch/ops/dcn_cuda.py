@@ -36,7 +36,10 @@ dcn_bwd_dwmo and dcn_bwd_dx in two parts and three passes; each first
 launches a small kernel that splits W and lays it out for wgmma (plain
 versions: ``fwd_weight_image``, ``dwmo_weight_image``, ``dx_weight_image``).
 dcn_bwd_dx is a mirrored gather over a shared-memory halo of g (plain
-version of its algorithm: ``ops/dcn.py::modulated_deform_conv_dx_mirrored``);
+version of its algorithm: ``ops/dcn.py::modulated_deform_conv_dx_mirrored``),
+and beyond a clamp reach of 11, where that halo outgrows shared memory, a
+product u = g W^T on the CUDA cores and a gather of u from device memory
+(``modulated_deform_conv_dx_wide``);
 none of the three uses atomics, so two launches are bit-equal.  Under
 ``torch.no_grad()`` the forward takes f32 x and rounds it to the bf16
 transfer dtype inside the kernel, bit-equal to casting it first; under
@@ -108,12 +111,17 @@ _ARGTYPES = {
                 _i32, _i32, _i32, _i32, _i32, _f32, _vp],
     "dcn_bwd_dx": [_i32, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _vp, _vp, _i32, _i32, _i32, _i32,
                    _i32, _f32, _i32, _vp],
+    "dcn_bwd_dx_wide": [_i32, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32,
+                        _f32, _i32, _vp],
     "dcn_bwd_dwmo": [_vp, _i32, _i32, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i32,
                      _i32, _i32, _i32, _i32, _i32, _i32, _f32, _vp],
     "dcn_ablate": [_i32, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32,
                    _i32, _i32, _i32, _i32, _vp],
     "relayout": [_vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _vp],
 }
+
+# the entry points of each library beyond the one named after it
+_MORE_SYMBOLS = {"dcn_bwd_dx": ("dcn_bwd_dx_wide",)}
 
 _libs: Optional[Dict[str, ctypes.CDLL]] = None
 
@@ -167,9 +175,10 @@ def build() -> Dict[str, ctypes.CDLL]:
     libs = {}
     for name, (_, so) in targets.items():
         lib = ctypes.CDLL(str(so))
-        fn = getattr(lib, name)
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = _i32
+        for symbol in (name,) + _MORE_SYMBOLS.get(name, ()):
+            fn = getattr(lib, symbol)
+            fn.argtypes = _ARGTYPES[symbol]
+            fn.restype = _i32
         libs[name] = lib
     _libs = libs
     return libs
@@ -201,12 +210,15 @@ def _check_grad_inputs(x, offset, mask, weight, g) -> None:
                          f"got {g.dtype} {tuple(g.shape)} on {g.device}")
 
 
-def _launch(name: str, x: torch.Tensor, *args) -> None:
+def _launch(name: str, x: torch.Tensor, *args, symbol: Optional[str] = None) -> None:
+    """Call the entry point ``symbol`` (by default ``name``) of kernel
+    library ``name`` on x's device and current stream."""
     lib = build()
+    symbol = symbol or name
     with torch.cuda.device(x.device):
-        err = getattr(lib[name], name)(*args, torch.cuda.current_stream(x.device).cuda_stream)
+        err = getattr(lib[name], symbol)(*args, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+        raise RuntimeError(f"{symbol} launch failed: CUDA error {err}")
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -324,8 +336,11 @@ def dx_smem_bytes(reach: int, C: int) -> int:
 
 
 # the largest clamp reach ceil(R) whose halo of g, floors and stages fit a
-# dcn_bwd_dx block's shared memory (11: g in 16-channel slices)
+# dcn_bwd_dx block's shared memory (11: g in 16-channel slices); beyond it
+# the kernel's wide path, without a halo, up to DX_WIDE_MAX_REACH, where its
+# floor codes (a signed byte each, csrc/dcn_bwd_dx.cu's kWideMaxReach) end
 DX_MAX_REACH = max(r for r in range(64) if dx_halo_channels(r))
+DX_WIDE_MAX_REACH = 127
 
 
 def fwd_weight_image(weight: torch.Tensor, bn: int, bf16_math: bool = False) -> torch.Tensor:
@@ -412,13 +427,16 @@ def dcn_bwd_dx(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
 
     x is the forward's input as its kernel read it (float32, or bfloat16
     under bf16 transfer); only its shape is used: dx does not depend on x.
-    On a CUDA tensor the kernel gathers, for each output pixel, the corners
-    that land on it from a halo of g in shared memory and contracts W_k^T on
-    the tensor cores; every sum runs in a fixed order, so two launches are
-    bit-equal.  It raises ValueError for an R whose halo does not fit a
-    block's shared memory (ceil(R) > DX_MAX_REACH = 11).
-    ``dcn_bwd_dx.launches`` (``.bf16_math_launches`` under
-    ``compute_dtype=bfloat16``) counts kernel launches.
+    On a CUDA tensor, up to ceil(R) = DX_MAX_REACH (11) the kernel gathers,
+    for each output pixel, the corners that land on it from a halo of g in
+    shared memory and contracts W_k^T on the tensor cores; beyond, its wide
+    path contracts first (u = g W^T) and gathers u from device memory
+    (plain version: ``ops/dcn.py::modulated_deform_conv_dx_wide``).  Every
+    sum runs in a fixed order, so two launches are bit-equal.  It raises
+    ValueError, naming R, for ceil(R) > DX_WIDE_MAX_REACH (127), where the
+    wide path's one-byte floor codes end.  ``dcn_bwd_dx.launches``
+    (``.bf16_math_launches`` under ``compute_dtype=bfloat16``) counts kernel
+    launches, of either path.
     """
     _check_grad_inputs(x, offset, mask, weight, g)
     bf16_math = check_compute_dtype(compute_dtype)
@@ -432,12 +450,19 @@ def dcn_bwd_dx(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     _check_kernel_operands("dcn_bwd_dx", B, H, W, C, Co, offset=offset, mask=mask,
                            weight=weight, g=g)
     reach = math.ceil(max_offset)
-    if not 0 <= reach <= DX_MAX_REACH:
-        raise ValueError(f"dcn_bwd_dx: max_offset R = {max_offset} does not fit the kernel: a "
-                         f"block's halo of g, its floors and stages outgrow its shared memory "
-                         f"(R <= {DX_MAX_REACH} fits)")
+    if not 0 <= reach <= DX_WIDE_MAX_REACH:
+        raise ValueError(f"dcn_bwd_dx: max_offset R = {max_offset} does not fit the kernel: its "
+                         f"floor codes take |floor(offset)| <= {DX_WIDE_MAX_REACH}")
     # every element of dx is written once: no zeroing
     dx = torch.empty((B, H, W, C), device=x.device, dtype=torch.float32)
+    if reach > DX_MAX_REACH:
+        code = torch.empty((B, H, W, 9), device=x.device, dtype=torch.int16)
+        u = torch.empty((B, H, W, 9, C), device=x.device, dtype=torch.float32)
+        _launch("dcn_bwd_dx", x, int(bf16_math), offset.data_ptr(), mask.data_ptr(),
+                weight.data_ptr(), g.data_ptr(), code.data_ptr(), u.data_ptr(), dx.data_ptr(),
+                B, H, W, C, Co, float(max_offset), reach, symbol="dcn_bwd_dx_wide")
+        _count(dcn_bwd_dx, bf16_math)
+        return dx
     w_img = torch.empty(dx_image_numel(C, Co), device=x.device, dtype=torch.bfloat16)
     _launch("dcn_bwd_dx", x, int(bf16_math), offset.data_ptr(), mask.data_ptr(),
             weight.data_ptr(), w_img.data_ptr(), DX_PARTS, dx_tile_c(C), dx_smem_bytes(reach, C),

@@ -4,6 +4,7 @@ plain-op step lands from itself and from a step that computes another
 function.
 
     python -m monoflex_tpu_torch.tools.bf16_step_spread [--seeds 0,0,1,2,3] [--steps 6]
+        [--deterministic] [--dtype float32]
 
 For each seed s: ``runs/monoflex_bf16.yaml`` at 384x1280, batch 8, seeded
 weights (seed s, the offset/mask convs perturbed with seed s + 1, as
@@ -14,6 +15,14 @@ the kernels with every stage's clamp one pixel narrower (another function,
 to show what a limit on these distances lets through).  Each pair is read
 as chip_smoke.py reads it (``step_distances``).  Prints one JSON line per
 seed.  Exits non-zero without a card.
+
+Whether the steps repeat: a seed given twice reads, in its second line,
+``state_max_abs_diff``, the largest difference between the two trained
+states.  ``--deterministic`` turns cuDNN's autotune off and sets
+``torch.use_deterministic_algorithms(True, warn_only=True)``; each line then
+lists, under ``nondeterministic_ops``, the ops that warned that they have no
+deterministic implementation.  ``--dtype float32`` runs the f32 model
+(``runs/monoflex.yaml``) instead of the bf16 one.
 """
 
 from __future__ import annotations
@@ -21,6 +30,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import warnings
 from typing import Dict, Tuple
 
 import torch
@@ -89,23 +99,45 @@ def main() -> None:
     parser.add_argument("--steps", type=int, default=6,
                         help="train-mode steps before the comparison (chip_smoke.py's: 1 + 5)")
     parser.add_argument("--batch", type=int, default=8)
+    parser.add_argument("--deterministic", action="store_true",
+                        help="cuDNN autotune off, torch's deterministic algorithms (warn only)")
+    parser.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
     args = parser.parse_args()
     require_cuda("bf16_step_spread")
     cfg = get_cfg_defaults()
-    cfg.merge_from_file(os.path.join(ROOT, "runs", "monoflex_bf16.yaml"))
+    yaml = "monoflex_bf16.yaml" if args.dtype == "bfloat16" else "monoflex.yaml"
+    cfg.merge_from_file(os.path.join(ROOT, "runs", yaml))
+    if args.deterministic:
+        # cuBLAS needs a fixed workspace for repeatable reductions
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        cfg.CUDNN_BENCHMARK = False
+        torch.use_deterministic_algorithms(True, warn_only=True)
     narrow = cfg.clone()
     narrow.TPU.DCN_MAX_OFFSET_PER_STAGE = tuple(
         r - 1 for r in (cfg.TPU.DCN_MAX_OFFSET_PER_STAGE or (cfg.TPU.DCN_MAX_OFFSET,) * 4))
     batch = {k: torch.from_numpy(v).cuda() for k, v in make_train_batch(args.batch).items()}
+    states = {}
     for seed in (int(s) for s in args.seeds.split(",")):
-        state = trained_state(cfg, seed, args.steps, batch)
-        plain = fixed_stats_step(state, cfg, batch, False)
-        rec = {"seed": seed, "steps": args.steps, "device": torch.cuda.get_device_name(0)}
-        for label, c, kernel in (("kernel", cfg, True), ("plain_again", cfg, False),
-                                 ("narrower_clamp", narrow, True)):
-            rec[label] = step_distances(fixed_stats_step(state, c, batch, kernel), plain)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            state = trained_state(cfg, seed, args.steps, batch)
+            plain = fixed_stats_step(state, cfg, batch, False)
+            rec = {"seed": seed, "steps": args.steps, "dtype": args.dtype,
+                   "deterministic": args.deterministic,
+                   "device": torch.cuda.get_device_name(0)}
+            if seed in states:
+                rec["state_max_abs_diff"] = max(
+                    (v.float() - states[seed][k].float()).abs().max().item()
+                    for k, v in state.items() if v.is_floating_point())
+            for label, c, kernel in (("kernel", cfg, True), ("plain_again", cfg, False),
+                                     ("narrower_clamp", narrow, True)):
+                rec[label] = step_distances(fixed_stats_step(state, c, batch, kernel), plain)
+        if args.deterministic:
+            rec["nondeterministic_ops"] = sorted({str(w.message).split(".")[0] for w in caught
+                                                  if "deterministic" in str(w.message)})
         print(json.dumps(rec), flush=True)
-        del state, plain
+        states.setdefault(seed, state)
+        del plain
         torch.cuda.empty_cache()
 
 

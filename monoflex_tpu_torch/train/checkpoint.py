@@ -13,13 +13,21 @@ at a barrier after.  ``SOLVER.LOAD_OPTIMIZER_SCHEDULER=False`` restores the
 weights and BN stats only and starts at iteration 0, as does a checkpoint
 whose optimizer or EMA structure differs from the run's (e.g. saved with
 another ``SOLVER.EMA_DECAY``).
+
+A JAX orbax checkpoint reaches the port as the ``.npz`` that
+``convert_jax_checkpoint.py`` (repo root, run where JAX is) writes: the
+weights and BN stats (``model/<name>``), the EMA shadow (``ema/<name>``,
+``ema_count``), Adam's moments in torch layouts (``exp_avg/``,
+``exp_avg_sq/``), their update count and the ``TrainState`` counters.  ``load`` takes such a file
+wherever it takes a checkpoint (``--ckpt``, ``MODEL.WEIGHT``).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -78,6 +86,8 @@ class Checkpointer:
         if path is None or not os.path.exists(path):
             return TrainState(), 0
         device = next(model.parameters()).device
+        if path.endswith(".npz"):
+            return self._load_converted(path, model, optimizer, device)
         ckpt = torch.load(path, map_location=device, weights_only=True)
         model.load_state_dict(ckpt["model"])
         if not self.load_optimizer_scheduler:
@@ -89,3 +99,43 @@ class Checkpointer:
             return TrainState(), 0
         state = TrainState(step=int(ckpt["state"]["step"]), skips=int(ckpt["state"]["skips"]))
         return state, state.step
+
+    def _load_converted(self, path: str, model: nn.Module, optimizer: Optimizer,
+                        device) -> Tuple[TrainState, int]:
+        """Restore a converted JAX checkpoint (``convert_jax_checkpoint.py``)."""
+        arrays = read_converted(path)
+        state = {k: v.to(device) for k, v in arrays["model"].items()}
+        for name, value in model.state_dict().items():
+            if name.endswith("num_batches_tracked") and name not in state:
+                state[name] = torch.zeros_like(value)
+        model.load_state_dict(state, strict=True)
+        if not self.load_optimizer_scheduler:
+            return TrainState(), 0
+        try:
+            optimizer.load_named_state(arrays["moments"], int(arrays["count"]),
+                                       arrays["ema"], int(arrays["ema_count"]))
+        except ValueError:
+            # structure mismatch: weights and stats only, as for a torch file
+            return TrainState(), 0
+        train_state = TrainState(step=int(arrays["step"]), skips=int(arrays["skips"]))
+        return train_state, train_state.step
+
+
+def read_converted(path: str) -> Dict[str, object]:
+    """A converted JAX checkpoint as {"model": {name: tensor}, "moments":
+    {kind: {name: tensor}}, "ema": {name: tensor} or None, and the counters
+    "count", "ema_count", "step", "skips"}."""
+    with np.load(path, allow_pickle=False) as npz:
+        out: Dict[str, object] = {"model": {}, "moments": {}, "ema": None}
+        for key in npz.files:
+            group, _, name = key.partition("/")
+            if not name:
+                out[group] = npz[key].item()
+            elif group == "model":
+                out["model"][name] = torch.from_numpy(npz[key])
+            elif group == "ema":
+                out["ema"] = out["ema"] or {}
+                out["ema"][name] = torch.from_numpy(npz[key])
+            else:
+                out["moments"].setdefault(group, {})[name] = torch.from_numpy(npz[key])
+    return out

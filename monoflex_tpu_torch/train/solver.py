@@ -195,6 +195,36 @@ class Optimizer:
         return {"inner": self.inner.state_dict(), "count": self.count,
                 "ema": None if self.ema is None else self.ema.state_dict()}
 
+    @torch.no_grad()
+    def load_named_state(self, moments: Dict[str, Dict[str, torch.Tensor]], count: int,
+                         ema: Optional[Dict[str, torch.Tensor]], ema_count: int) -> None:
+        """Restore Adam's moments by parameter name ({"exp_avg": {name:
+        tensor}, "exp_avg_sq": {...}}, torch layouts; a converted JAX
+        checkpoint's), the update count and the EMA; ValueError, with nothing
+        changed, when the optimizer, the parameters or the EMA differ."""
+        if self.model is None:
+            raise ValueError("the optimizer has no model to name its parameters")
+        names = {id(p): n for n, p in self.model.named_parameters()}
+        if not isinstance(self.inner, (torch.optim.Adam, torch.optim.AdamW)):
+            raise ValueError("converted moments are Adam's: the optimizer is "
+                             f"{type(self.inner).__name__}")
+        ours = [names[id(p)] for g in self.inner.param_groups for p in g["params"]]
+        if any(n not in m for m in moments.values() for n in ours):
+            raise ValueError("the checkpoint's moments lack some of the optimizer's parameters")
+        if (ema is None) != (self.ema is None):
+            raise ValueError("EMA on one side only (SOLVER.EMA_DECAY differs)")
+        if self.ema is not None:
+            self.ema.check_state_dict({"shadow": ema})
+        for group in self.inner.param_groups:
+            for p in group["params"]:
+                self.inner.state[p] = {
+                    "step": torch.tensor(float(count)),
+                    **{k: moments[k][names[id(p)]].to(p.device, p.dtype).clone()
+                       for k in ("exp_avg", "exp_avg_sq")}}
+        self.count = count
+        if self.ema is not None:
+            self.ema.load_state_dict({"shadow": ema, "count": ema_count})
+
     def load_state_dict(self, state: Dict[str, object]) -> None:
         """Restore ``state_dict()``; ValueError, with nothing changed, when
         its structure differs (EMA on one side only, other parameters or

@@ -236,11 +236,39 @@ def test_dx_takes_the_per_stage_clamp(device, shape, R, compute_dtype):
     assert (first - ref).abs().max().item() <= tol
 
 
+# past the halo's reach (ceil(R) > DX_MAX_REACH = 11) the wide path: two of
+# the neck's shapes (batch 2) at R = 12 and 16, and R = 40 on a small map
+@pytest.mark.parametrize("shape,R", [((2, 24, 80, 256, 256), 12), ((2, 24, 80, 256, 256), 16),
+                                     ((2, 48, 160, 128, 64), 12), ((2, 48, 160, 128, 64), 16),
+                                     ((1, 16, 32, 8, 8), 40)])
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
+def test_dx_takes_any_reach(device, shape, R, compute_dtype):
+    """Beyond R' = 11 the kernel contracts first (u = g W^T) and gathers u
+    without a halo: against the plain backward in the same math (offsets of
+    1.5 R standard deviation), bit-equal over two launches, each counted."""
+    x, off, mask, w, _ = make_inputs(device, *shape, seed=11, bias=False)
+    off = off * R
+    g = torch.randn(*shape[:3], shape[4], device=device,
+                    generator=torch.Generator(device=device).manual_seed(12))
+    before = dcn_cuda.dcn_bwd_dx.launches, dcn_cuda.dcn_bwd_dx.bf16_math_launches
+    kw = dict(max_offset=R, compute_dtype=compute_dtype)
+    first = dcn_cuda.dcn_bwd_dx(x, off, mask, w, g, **kw)
+    second = dcn_cuda.dcn_bwd_dx(x, off, mask, w, g, **kw)
+    torch.cuda.synchronize()
+    bf16 = compute_dtype == torch.bfloat16
+    assert (dcn_cuda.dcn_bwd_dx.launches, dcn_cuda.dcn_bwd_dx.bf16_math_launches) == (
+        before[0] + 2 * (not bf16), before[1] + 2 * bf16)
+    assert torch.equal(first, second)
+    ref = modulated_deform_conv_backward(x, off, mask, w, g, wrt=("x",), **kw)[0]
+    tol = 1e-4 * ref.abs().max().item() if bf16 else ATOL
+    assert (first - ref).abs().max().item() <= tol
+
+
 def test_dx_rejects_a_halo_that_does_not_fit(device):
-    """An R whose halo of g does not fit a block's shared memory (R > 11)
-    raises, naming R, and launches nothing: there is no fallback to the
+    """An R past the kernel's floor codes (ceil(R) > DX_WIDE_MAX_REACH =
+    127) raises, naming R, and launches nothing: there is no fallback to the
     plain op."""
-    R = dcn_cuda.DX_MAX_REACH + 1
+    R = dcn_cuda.DX_WIDE_MAX_REACH + 1
     x, off, mask, w, _ = make_inputs(device, 1, 16, 32, 8, 8, bias=False)
     g = torch.randn(1, 16, 32, 8, device=device)
     before = dcn_cuda.dcn_bwd_dx.launches

@@ -1,12 +1,13 @@
 """dcn_bwd_dx's algorithm on the CPU: the mirrored gather
 (``ops/dcn.py::modulated_deform_conv_dx_mirrored``, z_k by gathering at each
 output pixel the corners that land on it, then dx = sum_k z_k W_k^T), the
-layout of W_k^T that the kernel's first launch writes, and the split-bf16
+wide path's (``modulated_deform_conv_dx_wide``: u_k = g W_k^T first, then
+the same gather of u, beyond R' = 11), the layout of W_k^T that the kernel's first launch writes, and the split-bf16
 arithmetic of its tensor-core products.
 
 Tolerances.  The mirrored dx against the port's plain backward: 1e-5 of
 max |ref| (float32 both sides, the contraction reassociated; about 3e-7 is
-seen).  Against the JAX dx5 in interpret mode: 1e-5 abs, as
+seen); the wide path's too.  Against the JAX dx5 in interpret mode: 1e-5 abs, as
 ``test_torch_dcn_bwd.py::test_dx_matches_dx5``.  The split products: as
 ``test_torch_split_bf16.py``, BWD_RTOL / 10 of the float64 product.
 """
@@ -22,8 +23,10 @@ import torch
 import monoflex_tpu.ops.dcn_pallas_v3 as DP3
 from monoflex_tpu_torch.ops import dcn_cuda
 from monoflex_tpu_torch.ops.dcn import (modulated_deform_conv_backward,
-                                        modulated_deform_conv_dx_mirrored)
-from monoflex_tpu_torch.ops.dcn_cuda import (DX_MAX_REACH, SMEM_LIMIT, dx_halo_channels,
+                                        modulated_deform_conv_dx_mirrored,
+                                        modulated_deform_conv_dx_wide)
+from monoflex_tpu_torch.ops.dcn_cuda import (DX_MAX_REACH, DX_WIDE_MAX_REACH, SMEM_LIMIT,
+                                             dx_halo_channels,
                                              dx_smem_bytes, dx_tile_c, dx_weight_image,
                                              split_bf16, swizzle_128b)
 from monoflex_tpu_torch.tools.kernel_bench import MODEL_SHAPES
@@ -95,6 +98,31 @@ def test_mirrored_dx_matches_dx5(interpret_mode, R):
     ref = np.asarray(DP3.dcn_pallas_v5_bwd_dx(*map(jnp.asarray, arrays), max_offset=R))
     _, off, mask, w, g = map(torch.from_numpy, arrays)
     got = modulated_deform_conv_dx_mirrored(off, mask, w, g, max_offset=R).numpy()
+    np.testing.assert_allclose(got, ref, atol=ATOL)
+
+
+# R = 12 and 16: past the halo path's reach (DX_MAX_REACH = 11)
+@pytest.mark.parametrize("shape", [(1, 9, 13, 40, 72), (2, 7, 5, 8, 16)])
+@pytest.mark.parametrize("R", [12, 16])
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
+def test_wide_dx_equals_plain_backward(shape, R, compute_dtype):
+    x, off, mask, w, g = map(torch.from_numpy, wide_inputs(4, *shape, R))
+    ref = modulated_deform_conv_backward(x, off, mask, w, g, max_offset=R,
+                                         compute_dtype=compute_dtype, wrt=("x",))[0]
+    got = modulated_deform_conv_dx_wide(off, mask, w, g, max_offset=R,
+                                        compute_dtype=compute_dtype)
+    assert (got - ref).abs().max().item() <= RTOL * ref.abs().max().item()
+
+
+def test_wide_dx_matches_dx5(interpret_mode):
+    """The wide path's algorithm at R = 12, which the TPU's dx5 takes too,
+    against dx5 in interpret mode on a tiny map (offsets away from integers,
+    C1)."""
+    R = DX_MAX_REACH + 1
+    arrays = wide_inputs(5, 1, 6, 9, 8, 8, R)
+    ref = np.asarray(DP3.dcn_pallas_v5_bwd_dx(*map(jnp.asarray, arrays), max_offset=R))
+    _, off, mask, w, g = map(torch.from_numpy, arrays)
+    got = modulated_deform_conv_dx_wide(off, mask, w, g, max_offset=R).numpy()
     np.testing.assert_allclose(got, ref, atol=ATOL)
 
 
@@ -186,6 +214,8 @@ def test_max_reach_is_the_kernels():
     r = DX_MAX_REACH
     assert r >= 8 and dx_halo_channels(r) and not dx_halo_channels(r + 1)
     assert (2 * dcn_cuda._DX_NARROW_REACH + 1) ** 2 <= dcn_cuda._DX_MAX_CAND
+    # the wide path's limit: its signed-byte floor codes
+    assert kernel_constant("kWideMaxReach") == DX_WIDE_MAX_REACH == 127
 
 
 # the (C, Co) of the neck's DCN layers (tools/kernel_bench.py::MODEL_SHAPES)

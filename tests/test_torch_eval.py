@@ -1,8 +1,8 @@
 """The port's KITTI evaluator (a numpy copy of the JAX package's) against the
 JAX one on the same label and prediction directories, R40 and R11: equal
-tables and equal AP dicts.  The JAX evaluator may swap in its C++ overlap
-and statistics code; the port has only the numpy path, so the comparison
-turns the C++ path off on the JAX side.  And labels written back as
+tables and equal AP dicts.  Both evaluators may swap in their C++ overlap
+and statistics code; this comparison turns it off on both sides
+(tests/test_torch_native.py holds the C++ paths).  And labels written back as
 predictions score 100 AP where a class has at least 41 valid objects (the
 evaluator fills one precision sample per score threshold, so a class with n
 objects tops out at (n - 1) / 40 of the R40 points)."""
@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 import monoflex_tpu.native
+import monoflex_tpu_torch.native
 from monoflex_tpu.eval import evaluate_python as jax_evaluate_python
 from monoflex_tpu_torch.eval import evaluate_python
 
@@ -64,7 +65,9 @@ def run_both(root, pred_dir, metric):
 
 @pytest.mark.parametrize("metric", ["R40", "R11"])
 def test_evaluator_matches_jax(tree, metric, monkeypatch):
+    # both sides' numpy paths (the C++ paths: tests/test_torch_native.py)
     monkeypatch.setattr(monoflex_tpu.native, "load_native", lambda: None)
+    monkeypatch.setattr(monoflex_tpu_torch.native, "load_native", lambda: None)
     root, noisy, _ = tree
     (text, ap), (jtext, jap) = run_both(root, noisy, metric)
     assert text == jtext

@@ -28,6 +28,7 @@ import pytest
 import torch
 
 import monoflex_tpu.native
+import monoflex_tpu_torch.native
 from monoflex_tpu.config import get_cfg_defaults as jax_cfg_defaults
 from monoflex_tpu.data.dataset import KITTIDataset as JaxKITTIDataset
 from monoflex_tpu.data.loader import make_test_loader as jax_make_test_loader
@@ -153,7 +154,9 @@ def assert_runs_match(ours, theirs, pred_dir, jpred_dir):
 
 @pytest.fixture
 def numpy_evaluator(monkeypatch):
+    # both sides' numpy paths (the C++ paths: tests/test_torch_native.py)
     monkeypatch.setattr(monoflex_tpu.native, "load_native", lambda: None)
+    monkeypatch.setattr(monoflex_tpu_torch.native, "load_native", lambda: None)
 
 
 def test_inference_matches_jax(sides, tmp_path, numpy_evaluator):
@@ -184,10 +187,16 @@ def test_depth_sweep_matches_jax(sides, tmp_path, numpy_evaluator):
 
 
 def test_visualize_is_not_served(sides, tmp_path):
+    """(Named when visualize raised.)  ``visualize=True`` draws each image
+    of the set (at most 8) into ``vis/<id>.png``, as the JAX inference does,
+    beside the txts and the APs."""
     port, _ = sides
-    with pytest.raises(NotImplementedError, match="visualizer"):
-        inference(port["cfg"], port["step"], port["dataset"], str(tmp_path), visualize=True,
-                  device="cpu")
+    run = inference(port["cfg"], port["step"], port["dataset"], str(tmp_path),
+                    visualize=True, device="cpu")
+    pngs = sorted(os.listdir(tmp_path / "vis"))
+    assert pngs == sorted(port["dataset"].image_files)[:8] and len(pngs) == len(port["dataset"])
+    assert len(os.listdir(tmp_path / "data")) == len(port["dataset"])
+    assert 0 <= run["Car_3d_0.70/moderate"] <= 100
 
 
 def test_entry_points_default_to_the_card():

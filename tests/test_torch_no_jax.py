@@ -1,8 +1,12 @@
 """The port stands alone: importing its inference, training (the CLI, the
 loop, checkpoints, launch and data parallelism), evaluation and
 kernel-diagnostics paths, every model configuration (the dlav0 family, the
-compute-dtype layers) and the DCN offset guard (and chip_smoke.py, which drives them on the GPU)
-loads no jax, flax or triton module, no module of the JAX package
+compute-dtype layers) and the DCN offset guard, the C++ evaluator's loader,
+the visualizer, the reference-checkpoint loader, the multi-process dry run,
+the small modules (PSROI pooling, uncertainty weights, adaptive clipping,
+structures, registry) and the tools (convergence gate, offset statistics,
+FLOPs, the plain_train_net shim) (and chip_smoke.py, which drives them on
+the GPU) loads no jax, flax or triton module, no module of the JAX package
 ``monoflex_tpu``, and builds or loads no kernel library."""
 
 import os
@@ -39,20 +43,30 @@ import monoflex_tpu_torch.engine.test_net
 import monoflex_tpu_torch.engine.trainer
 import monoflex_tpu_torch.eval
 import monoflex_tpu_torch.losses.loss_computation
+import monoflex_tpu_torch.losses.uncertainty
 import monoflex_tpu_torch.models.backbone.dlav0
 import monoflex_tpu_torch.models.detector
 import monoflex_tpu_torch.models.heads.key2channel
 import monoflex_tpu_torch.models.layers
+import monoflex_tpu_torch.native
 import monoflex_tpu_torch.ops.dcn_ablate
+import monoflex_tpu_torch.ops.psroi
 import monoflex_tpu_torch.ops.relayout
 import monoflex_tpu_torch.ops.rotated_iou
+import monoflex_tpu_torch.parallel.dryrun
 import monoflex_tpu_torch.parallel.mesh
+import monoflex_tpu_torch.structures
 import monoflex_tpu_torch.train.checkpoint
+import monoflex_tpu_torch.train.grad_clip
 import monoflex_tpu_torch.train.solver
 import monoflex_tpu_torch.tools.bf16_step_spread
+import monoflex_tpu_torch.tools.convergence_run
+import monoflex_tpu_torch.tools.flops
 import monoflex_tpu_torch.tools.fwd_ablate
 import monoflex_tpu_torch.tools.kernel_bench
 import monoflex_tpu_torch.tools.kernel_diag
+import monoflex_tpu_torch.tools.offset_stats
+import monoflex_tpu_torch.tools.plain_train_net
 import monoflex_tpu_torch.tools.trace_time
 import monoflex_tpu_torch.tools.transpose_ablate
 import monoflex_tpu_torch.train.train_step
@@ -64,11 +78,15 @@ import monoflex_tpu_torch.utils.logger
 import monoflex_tpu_torch.utils.metric_logger
 import monoflex_tpu_torch.utils.param_bridge
 import monoflex_tpu_torch.utils.precision
+import monoflex_tpu_torch.utils.registry
 import monoflex_tpu_torch.utils.timer
+import monoflex_tpu_torch.utils.visualizer
+import monoflex_tpu_torch.utils.weight_import
 from monoflex_tpu_torch.ops import dcn_cuda
 new = sorted(loaded() - before)
 assert not new, new
 assert dcn_cuda._libs is None, "a kernel library was built or loaded at import"
+assert monoflex_tpu_torch.native._lib is None, "the evaluator's library was loaded at import"
 print("clean")
 """
 
