@@ -105,7 +105,17 @@ Phases, one line each; any failure exits non-zero and prints no result:
              convergence_run on its own 1/4-scale rendered tree (one eval,
              its table, the CLI's time an iteration at 96x320, batch 4),
              offset_stats on its checkpoint and flops; PSROI pooling on the card against the CPU.
- 12. report  the kernels' JSON line (with each kernel's bound on the card),
+ 12. bench   the benchmark entry points, as processes at their defaults:
+             python -m monoflex_tpu_torch.bench and
+             python -m monoflex_tpu_torch.tools.benchmark_train, each in f32
+             and with BENCH_DTYPE=bfloat16; each last line must be the JAX
+             line (its four keys, a finite positive value, vs_baseline over
+             its baseline) and each run must launch each DCN kernel 16 times
+             a call, warm-up included (MONOFLEX_TORCH_LAUNCH_LOG); then
+             entry()'s fn in this process (finite (8, 50, 14) rows), and
+             kernel_sweep (shape 0, f32r2) and bilinear_ablate as processes,
+             3 iterations each, every record with finite times.
+ 13. report  the kernels' JSON line (with each kernel's bound on the card),
              the card line, and last the result line
              {"ok": true, "device": {...}}.
 """
@@ -267,6 +277,8 @@ PSROI_ATOL = 1e-5
 # the resumed run's end, and the steps the first run profiles
 TRAINER_ITERS, TRAINER_SAVE, TRAINER_RESUME = 20, 10, 30
 TRAINER_PROFILE = 5
+# the bench phase's iterations of kernel_sweep and bilinear_ablate
+SWEEP_ITERS = 3
 # published peaks of one H100 SXM (NVIDIA's data sheet, dense): f32 outside
 # the tensor cores, the type of the kernels' arithmetic; bf16 on the tensor
 # cores, the type of the bf16 window math's product (bf16 x bf16 summed in
@@ -2023,6 +2035,94 @@ def run_modules(card: str) -> dict:
     return {"seconds": seconds}
 
 
+def check_bench_line(line: str, metric: str, baseline: float) -> dict:
+    """The JAX harness's last line: its four keys, a finite positive value,
+    and vs_baseline = value / baseline as the JAX harness rounds them (both
+    from the unrounded rate: value to 2 decimals, vs_baseline to 3)."""
+    rec = json.loads(line)
+    if (sorted(rec) != ["metric", "unit", "value", "vs_baseline"] or rec["metric"] != metric
+            or rec["unit"] != "img/s" or not finite(rec["value"]) or not rec["value"] > 0
+            or not abs(rec["vs_baseline"] - rec["value"] / baseline)
+            <= 5e-4 + 5e-3 / baseline):
+        raise AssertionError(f"{metric}: last line {line!r}")
+    return rec
+
+
+def run_bench(card: str) -> dict:
+    """The bench phase (see the module docstring); returns its seconds."""
+    from monoflex_tpu_torch import bench
+    from monoflex_tpu_torch.entry import entry
+    from monoflex_tpu_torch.tools import benchmark_train
+
+    t_phase = time.perf_counter()
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("BENCH_", "ABL_"))}
+    env.pop("MONOFLEX_PLATFORM", None)
+    runs = (("monoflex_tpu_torch.bench", "inference_images_per_sec_per_chip",
+             bench.V100_BASELINE_IMG_PER_S, bench.DEFAULT_ITERS, False),
+            ("monoflex_tpu_torch.tools.benchmark_train", "train_images_per_sec_per_chip",
+             benchmark_train.TRAIN_BASELINE_IMG_S, benchmark_train.DEFAULT_ITERS, True))
+    with tempfile.TemporaryDirectory(prefix="monoflex_bench_") as tmp:
+        for module, metric, baseline, iters, train in runs:
+            for dtype in ("float32", "bfloat16"):
+                t0 = time.perf_counter()
+                run_env = dict(env, BENCH_DTYPE=dtype) if dtype == "bfloat16" else env
+                proc, launches = run_module(module, [], run_env,
+                                            os.path.join(tmp, f"{metric}.{dtype}.json"))
+                lines = proc.stdout.strip().splitlines()
+                check_bench_line(lines[-1], metric, baseline)
+                calls = bench.WARMUP_CALLS + iters
+                got = (launches["dcn_fwd"], launches["dcn_bwd_dx"], launches["dcn_bwd_dwmo"])
+                want = (16 * calls, 16 * calls if train else 0, 16 * calls if train else 0)
+                if got != want:
+                    raise AssertionError(f"{module} ({dtype}): launches fwd/dx/dwmo {got}, "
+                                         f"want {want} for {calls} calls")
+                for line in lines[:-1]:
+                    phase("bench", f"{module} ({dtype}): {line}")
+                phase("bench", f"{module} ({dtype}) on {card}: {lines[-1]}; dcn_fwd launches "
+                               f"{got[0]} = 16 x ({bench.WARMUP_CALLS} + {iters}); exit 0 in "
+                               f"{time.perf_counter() - t0:.2f} s")
+
+        # entry() in this process
+        t0 = time.perf_counter()
+        fn, (model, batch) = entry()
+        before = dcn_cuda.dcn_forward.launches
+        rows, valid = fn(model, batch)
+        torch.cuda.synchronize()
+        if (tuple(rows.shape) != (BATCH, 50, 14) or not torch.isfinite(rows).all()
+                or dcn_cuda.dcn_forward.launches - before != 16):
+            raise AssertionError(f"entry(): rows {tuple(rows.shape)}, finite "
+                                 f"{bool(torch.isfinite(rows).all())}, dcn_fwd launches "
+                                 f"{dcn_cuda.dcn_forward.launches - before}")
+        phase("bench", f"entry(): fn(model, batch) gives finite rows {tuple(rows.shape)}, "
+                       f"{int(valid.sum())} valid, 16 dcn_fwd launches, in "
+                       f"{time.perf_counter() - t0:.2f} s")
+        del fn, model, batch, rows, valid
+        torch.cuda.empty_cache()
+
+        # the sweeps, as processes
+        lines, _ = run_tool("kernel_sweep", ["--shapes", "0", "--variants", "f32r2",
+                                             "--iters", str(SWEEP_ITERS)], tmp, "bench", env)
+        recs = [json.loads(line) for line in lines]
+        for rec in recs:
+            if "error" in rec or not all(finite(rec.get(k)) and rec[k] > 0
+                                         for k in ("ms_loop", "ms_device", "ms_percall")):
+                raise AssertionError(f"kernel_sweep record {rec}")
+            phase("bench", json.dumps(rec))
+        if [r["kernel"] for r in recs] != ["fwd", "dx", "dwm", "doff"]:
+            raise AssertionError(f"kernel_sweep timed {[r['kernel'] for r in recs]}")
+        lines, _ = run_tool("bilinear_ablate", [], tmp, "bench",
+                            dict(env, ABL_ITERS=str(SWEEP_ITERS)))
+        recs = [json.loads(line) for line in lines]
+        if len(recs) != 8 or not all(finite(r["ms_device"]) and r["ms_device"] > 0
+                                     for r in recs):
+            raise AssertionError(f"bilinear_ablate printed {lines}")
+        for rec in recs:
+            phase("bench", json.dumps(rec))
+    seconds = time.perf_counter() - t_phase
+    phase("bench", f"phase {seconds:.1f} s")
+    return {"seconds": seconds}
+
+
 @contextlib.contextmanager
 def watchdog(name: str, seconds: float):
     """End the process with a message if the phase runs past ``seconds``: a
@@ -2138,6 +2238,8 @@ def main() -> None:
         trainer = run_trainer(card)
     with watchdog("modules", 300):
         run_modules(card)
+    with watchdog("bench", 300):
+        run_bench(card)
     phase("report", f"inference slice dcn_fwd launches {slice_launches}; train phase "
                     + " ".join(f"{k}={v}" for k, v in train["launches"].items())
                     + f"; configs phase: bf16 forwards dcn_fwd={configs['bf16']['forward']}, "

@@ -302,18 +302,55 @@ class DeformConvBlock(nn.Module):
 class BilinearUp(nn.ConvTranspose2d):
     """Depthwise transposed conv, kernel 2f, stride f, pad f/2, bilinear
     initialised.  Its weight is the JAX kernel transposed, not flipped: the
-    JAX module flips its kernel to emulate the transposed conv."""
+    JAX module flips its kernel to emulate the transposed conv.
 
-    def __init__(self, channels: int, factor: int):
+    Two forms of one function, as the JAX module's ``impl``: "dilated" (the
+    default) is ``F.conv_transpose2d``; "phase" is the phase decomposition,
+    in which output pixel (f*m + a, f*n + b) takes exactly two taps per axis,
+    so each of the f*f phases is a per-channel weighted sum of 4 shifted
+    copies of x, and the phases are interleaved
+    (``tools/bilinear_ablate.py`` times the two)."""
+
+    IMPLS = ("dilated", "phase")
+
+    def __init__(self, channels: int, factor: int, impl: str = "dilated"):
+        if impl not in self.IMPLS:
+            raise ValueError(f"BilinearUp impl {impl!r}: one of {self.IMPLS}")
         super().__init__(channels, channels, 2 * factor, stride=factor,
                          padding=factor // 2, groups=channels, bias=False)
+        self.impl = impl
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.impl == "phase":
+            return self._phase(x)
         if x.dtype == self.weight.dtype:
             return super().forward(x)
         # the JAX module casts its kernel to x's dtype
         return F.conv_transpose2d(x, self.weight.to(x.dtype), None, self.stride, self.padding,
                                   self.output_padding, self.groups, self.dilation)
+
+    def _phase(self, x: torch.Tensor) -> torch.Tensor:
+        # out[y] = sum_i x[i] * w[y + p - f*i] with 0 <= y + p - f*i < 2f: for
+        # y = f*m + a the taps are r_a and r_a + f, r_a = (a + p) % f, on the
+        # sources m + e_a and m + e_a - 1, e_a = (a + p) // f
+        f, p = self.stride[0], self.padding[0]
+        B, C, H, W = x.shape
+        k = self.weight.to(x.dtype)[:, 0, :, :, None, None]       # (C, 2f, 2f, 1, 1)
+        xpad = F.pad(x, (1, 1, 1, 1))
+
+        def sh(dy: int, dx: int) -> torch.Tensor:
+            return xpad[:, :, 1 + dy:1 + dy + H, 1 + dx:1 + dx + W]
+
+        phases = []
+        for a in range(f):
+            ra, ea = (a + p) % f, (a + p) // f
+            for b in range(f):
+                rb, eb = (b + p) % f, (b + p) // f
+                phases.append(k[:, ra, rb] * sh(ea, eb) + k[:, ra, rb + f] * sh(ea, eb - 1)
+                              + k[:, ra + f, rb] * sh(ea - 1, eb)
+                              + k[:, ra + f, rb + f] * sh(ea - 1, eb - 1))
+        out = torch.stack(phases).view(f, f, B, C, H, W)
+        return out.permute(2, 3, 4, 0, 5, 1).reshape(B, C, f * H, f * W)
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:

@@ -1,7 +1,9 @@
 """chip_smoke.py has no CPU fallback: without a CUDA device, or without the
 rest of the repository beside it, it exits non-zero and prints no result.
-Its bounds count the work each kernel's function needs."""
+Its bounds count the work each kernel's function needs, and its bench phase
+reads the benchmark entry points' lines."""
 
+import json
 import os
 import shutil
 import subprocess
@@ -165,3 +167,25 @@ def test_trainer_phase_counts_launches_per_iteration():
     for bad in (dict(ok, dcn_bwd_dx=319), dict(ok, dcn_fwd=16 * 20)):
         with pytest.raises(AssertionError):
             smoke.check_trainer_launches(bad, 20, 2, "train")
+
+
+@pytest.mark.parametrize("rate", [3.19, 106.594999, 278.05, 41.0349])
+def test_bench_phase_reads_the_entry_points_lines(rate):
+    """The bench phase takes the entry points' JAX lines, whatever the
+    rounding of value and vs_baseline, and refuses a line that lacks a key,
+    carries the error's null value or a wrong vs_baseline."""
+    from monoflex_tpu_torch import bench
+    from monoflex_tpu_torch.tools.benchmark_train import METRIC, TRAIN_BASELINE_IMG_S
+
+    smoke = load_smoke()
+    for metric, baseline in ((bench.METRIC, bench.V100_BASELINE_IMG_PER_S),
+                             (METRIC, TRAIN_BASELINE_IMG_S)):
+        line = bench.result_line(metric, 8 * 20, 8 * 20 / rate, baseline)
+        assert smoke.check_bench_line(line, metric, baseline)["value"] == round(rate, 2)
+        rec = json.loads(line)
+        for bad in ({k: v for k, v in rec.items() if k != "unit"}, dict(rec, value=None),
+                    dict(rec, vs_baseline=rec["vs_baseline"] + 0.01), dict(rec, metric="x")):
+            with pytest.raises((AssertionError, TypeError)):
+                smoke.check_bench_line(json.dumps(bad), metric, baseline)
+        with pytest.raises(AssertionError):
+            smoke.check_bench_line(bench.error_line(metric, "no card"), metric, baseline)

@@ -146,3 +146,17 @@ def test_bf16_math_autograd(device):
                                                              compute_dtype=BF16)
     for a, b in zip(got, (dx, doff, dmask, dw, db)):
         assert rel_err(a, b) <= BF16_RTOL
+
+
+def test_kernel_sweep_times_each_kernel_three_ways(device):
+    """kernel_sweep at a model shape whose C (Co = C) dcn_bwd_dwmo takes,
+    every kernel of --what: the three times of each record positive."""
+    from monoflex_tpu_torch.tools import kernel_sweep
+    from monoflex_tpu_torch.tools.kernel_bench import MODEL_SHAPES
+
+    recs = list(kernel_sweep.sweep(["f32r2"], [MODEL_SHAPES[6]], kernel_sweep.WHAT, batch=2,
+                                   iters=3))
+    assert [r["kernel"] for r in recs] == list(kernel_sweep.WHAT)
+    for rec in recs:
+        assert "error" not in rec, rec
+        assert rec["ms_device"] > 0 and rec["ms_loop"] > 0 and rec["ms_percall"] > 0, rec

@@ -4,9 +4,10 @@ kernel-diagnostics paths, every model configuration (the dlav0 family, the
 compute-dtype layers) and the DCN offset guard, the C++ evaluator's loader,
 the visualizer, the reference-checkpoint loader, the multi-process dry run,
 the small modules (PSROI pooling, uncertainty weights, adaptive clipping,
-structures, registry) and the tools (convergence gate, offset statistics,
-FLOPs, the plain_train_net shim) (and chip_smoke.py, which drives them on
-the GPU) loads no jax, flax or triton module, no module of the JAX package
+structures, registry), the tools (convergence gate, offset statistics,
+FLOPs, the plain_train_net shim, the kernel and upsampling sweeps) and the
+benchmark entry points (bench, benchmark_train, entry) (and chip_smoke.py,
+which drives them on the GPU) loads no jax, flax or triton module, no module of the JAX package
 ``monoflex_tpu``, and builds or loads no kernel library."""
 
 import os
@@ -22,6 +23,7 @@ def loaded():
     return {m for m in sys.modules if m.split(".")[0] in banned}
 before = loaded()
 import chip_smoke
+import monoflex_tpu_torch.bench
 import monoflex_tpu_torch.cli
 import monoflex_tpu_torch.config
 import monoflex_tpu_torch.core.geometry_np
@@ -41,6 +43,7 @@ import monoflex_tpu_torch.engine.inference
 import monoflex_tpu_torch.engine.launch
 import monoflex_tpu_torch.engine.test_net
 import monoflex_tpu_torch.engine.trainer
+import monoflex_tpu_torch.entry
 import monoflex_tpu_torch.eval
 import monoflex_tpu_torch.losses.loss_computation
 import monoflex_tpu_torch.losses.uncertainty
@@ -59,12 +62,15 @@ import monoflex_tpu_torch.structures
 import monoflex_tpu_torch.train.checkpoint
 import monoflex_tpu_torch.train.grad_clip
 import monoflex_tpu_torch.train.solver
+import monoflex_tpu_torch.tools.benchmark_train
 import monoflex_tpu_torch.tools.bf16_step_spread
+import monoflex_tpu_torch.tools.bilinear_ablate
 import monoflex_tpu_torch.tools.convergence_run
 import monoflex_tpu_torch.tools.flops
 import monoflex_tpu_torch.tools.fwd_ablate
 import monoflex_tpu_torch.tools.kernel_bench
 import monoflex_tpu_torch.tools.kernel_diag
+import monoflex_tpu_torch.tools.kernel_sweep
 import monoflex_tpu_torch.tools.offset_stats
 import monoflex_tpu_torch.tools.plain_train_net
 import monoflex_tpu_torch.tools.trace_time
