@@ -1,0 +1,61 @@
+"""Layers that run in a compute dtype, as flax's ``dtype=`` attribute runs them.
+
+The JAX package builds its trunk, neck and head towers with ``dtype`` set to
+``TPU.COMPUTE_DTYPE`` while their parameters stay f32.  These modules carry
+that dtype as ``compute_dtype`` (float32 unless ``set_compute_dtype`` says
+otherwise), with flax's semantics:
+
+- ``Conv2d``: input and kernel cast to the compute dtype (cuDNN accumulates
+  a bf16 convolution in f32 and rounds its output to bf16), and the bias
+  added after the convolution, in the compute dtype, as ``flax.linen.Conv``
+  adds it;
+- ``GroupNorm``: flax's ``GroupNorm`` (epsilon 1e-6, not torch's 1e-5), its
+  statistics and normalisation in f32, its output cast once to the compute
+  dtype;
+- the BatchNorms of ``models/batchnorm.py`` and the modules of
+  ``models/backbone`` that cast (the trunk's input, the transposed
+  convolution's kernel) read the same attribute.
+
+At float32 each is the stock torch module.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+GN_EPS = 1e-6    # flax.linen.GroupNorm's default epsilon
+GN_GROUPS = 32
+
+
+class Conv2d(nn.Conv2d):
+    compute_dtype = torch.float32
+    # the control's rounding of input and kernel (``model.py``), or None
+    fake_quant = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        q = self.fake_quant or (lambda t: t)
+        if self.fake_quant is None and dt == torch.float32 and x.dtype == dt:
+            return super().forward(x)
+        y = self._conv_forward(q(x.to(dt)), q(self.weight.to(dt)), None)
+        return y if self.bias is None else y + self.bias.to(dt).view(1, -1, 1, 1)
+
+
+class GroupNorm(nn.GroupNorm):
+    compute_dtype = torch.float32
+
+    def __init__(self, channels: int):
+        super().__init__(GN_GROUPS, channels, eps=GN_EPS)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.group_norm(x.float(), self.num_groups, self.weight, self.bias,
+                            self.eps).to(self.compute_dtype)
+
+
+def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> None:
+    """Set the compute dtype of every submodule of ``module`` that has one."""
+    for m in module.modules():
+        if hasattr(m, "compute_dtype"):
+            m.compute_dtype = dtype
