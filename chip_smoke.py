@@ -1387,8 +1387,8 @@ def run_cli(args, env: dict, tmp: str, label: str):
 def loop_meters(log: str, max_iter: int) -> dict:
     """The time and data meters (s) of the loop's log points at iterations
     max_iter / 2 and max_iter, from its log lines (median and global
-    average of the values at the log points): the time per iteration of
-    each 10-iteration window and the data time of the logged iteration;
+    average of the values at the log points): the time and the data time
+    per iteration of each 10-iteration window;
     and the second window's time without the checkpoint saved at its start."""
     points = {}
     for m in re.finditer(r"iter (\d+)/(\d+) .*?time: (\S+) \((\S+)\)  data: (\S+) \((\S+)\)",

@@ -7,6 +7,11 @@ parallelism, and a background thread pool that keeps the card fed (encode is
 numpy-bound, threads release the GIL in PIL/numpy).  Batches stay numpy: the
 worker threads never touch CUDA, and the engine moves each batch to the
 device in the calling thread.
+
+Spans (``utils/trace.py``): ``loader.build`` (one batch's samples and their
+collation) and ``loader.put_wait`` (blocked on a full queue) in the
+producer thread, ``loader.wait`` (blocked on an empty one) in the consumer;
+counter ``loader.batches``.
 """
 
 from __future__ import annotations
@@ -17,6 +22,8 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterator, List, Optional
 
 import numpy as np
+
+from ..utils import trace
 
 
 def collate(samples: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
@@ -174,27 +181,32 @@ class DataLoader:
                     for batch_idx in self._batch_indices():
                         if stop.is_set():
                             return
-                        samples = list(pool.map(self.dataset.__getitem__, batch_idx))
-                        if self.pad_last and len(samples) < self.batch_size:
-                            filler = dict(samples[-1])
-                            filler["image_id"] = np.array(-1, dtype=np.int32)
-                            if "reg_mask" in filler:
-                                filler["reg_mask"] = np.zeros_like(filler["reg_mask"])
-                            samples += [filler] * (self.batch_size - len(samples))
-                        out_q.put(collate(samples))
+                        with trace.span("loader.build"):
+                            samples = list(pool.map(self.dataset.__getitem__, batch_idx))
+                            if self.pad_last and len(samples) < self.batch_size:
+                                filler = dict(samples[-1])
+                                filler["image_id"] = np.array(-1, dtype=np.int32)
+                                if "reg_mask" in filler:
+                                    filler["reg_mask"] = np.zeros_like(filler["reg_mask"])
+                                samples += [filler] * (self.batch_size - len(samples))
+                            batch = collate(samples)
+                        with trace.span("loader.put_wait"):
+                            out_q.put(batch)
                     out_q.put(None)
                 except Exception as e:  # surface worker errors to the consumer
                     out_q.put(e)
 
-        thread = threading.Thread(target=producer, daemon=True)
+        thread = threading.Thread(target=producer, name="loader", daemon=True)
         thread.start()
         try:
             while True:
-                item = out_q.get()
+                with trace.span("loader.wait"):
+                    item = out_q.get()
                 if item is None:
                     return
                 if isinstance(item, Exception):
                     raise item
+                trace.add("loader.batches")
                 yield item
         finally:
             stop.set()

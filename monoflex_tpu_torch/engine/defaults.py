@@ -28,7 +28,8 @@ def default_argument_parser() -> argparse.ArgumentParser:
                         help="spawn N local ranks, one per card")
     parser.add_argument("--profile", type=int, default=0, metavar="N",
                         help="capture a torch.profiler trace of the N steps after the "
-                             "first (OUTPUT_DIR/profile), with the device's idle share")
+                             "first (OUTPUT_DIR/profile) with the host spans of every "
+                             "thread, and log the device's idle share by span")
     # multi-host flags (engine/launch.py): each host runs this CLI once and
     # the processes meet at the coordinator (tcp://)
     parser.add_argument("--num_processes", type=int, default=None,

@@ -24,7 +24,7 @@ import torch
 from ..data.loader import make_test_loader
 from ..decode.kitti_writer import write_kitti_results
 from ..eval import evaluate_python
-from ..utils import comm
+from ..utils import comm, trace
 from ..utils.precision import apply_precision
 
 # the reference's 8-way sweep, oracle included (reference: engine/inference.py:154)
@@ -33,8 +33,13 @@ DEPTH_METHODS = ["direct", "keypoints_center", "keypoints_02", "keypoints_13",
 
 
 def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
-    """A numpy batch as tensors on ``device``."""
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in batch.items()}
+    """A numpy batch as tensors on ``device`` (span ``to_device``, its bytes
+    counted in ``to_device.bytes``)."""
+    with trace.span("to_device"):
+        out = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in batch.items()}
+    if trace.recording():
+        trace.add("to_device.bytes", sum(v.nbytes for v in batch.values()))
+    return out
 
 
 def compute_on_dataset(eval_step: Callable, loader, output_dir: str,

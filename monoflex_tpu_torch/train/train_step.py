@@ -12,6 +12,13 @@ while ``step`` and ``skips`` advance.  Deciding that costs one host sync per
 step, on the total loss.  ``make_eval_step`` is the evaluation path's
 forward and decode.
 
+Each part of a step is a span of ``utils/trace.py``: ``train_step.snapshot``
+(the BN buffers' copy), ``.forward``, ``.loss``, ``.backward``,
+``.finite_sync`` (the host waits for the total), ``.optimizer`` (all of
+``Optimizer.step``) or, on a skipped step, ``.restore``; with more than one
+process ``.all_reduce``.  The eval step's are ``eval_step.forward`` and
+``eval_step.decode``.
+
 With more than one process (``model`` wrapped by ``parallel/mesh.py``) the
 losses are the processes' shares of the global batch's (``losses/``); one
 all-reduce on the device turns the total and the log entries into the
@@ -30,6 +37,7 @@ from torch import nn
 
 from ..utils import comm
 from ..utils.precision import apply_precision
+from ..utils.trace import span
 from .solver import Optimizer
 
 Tensors = Dict[str, torch.Tensor]
@@ -45,14 +53,17 @@ def forward_backward(model: nn.Module, loss_computer, batch: Tensors
                      ) -> Tuple[torch.Tensor, Tensors, Tensors]:
     """Train-mode forward, the losses, and the gradient of their sum left in
     each parameter's ``.grad``: (total, loss_dict, log_dict)."""
-    model.train()
-    for p in model.parameters():
-        p.grad = None
-    outputs = model(batch["image"], batch.get("edge_indices"), batch.get("edge_len"))
-    loss_dict, log_dict = loss_computer(outputs, batch)
-    # summed in the order of jax.tree.leaves (sorted keys)
-    total = sum(loss_dict[k] for k in sorted(loss_dict))
-    total.backward()
+    with span("train_step.forward"):
+        model.train()
+        for p in model.parameters():
+            p.grad = None
+        outputs = model(batch["image"], batch.get("edge_indices"), batch.get("edge_len"))
+    with span("train_step.loss"):
+        loss_dict, log_dict = loss_computer(outputs, batch)
+        # summed in the order of jax.tree.leaves (sorted keys)
+        total = sum(loss_dict[k] for k in sorted(loss_dict))
+    with span("train_step.backward"):
+        total.backward()
     return total.detach(), loss_dict, log_dict
 
 
@@ -72,22 +83,26 @@ def make_train_step(model: nn.Module, loss_computer, optimizer: Optimizer
     use_model_precision(model)
 
     def train_step(state: TrainState, batch: Tensors) -> Tuple[TrainState, Dict[str, object]]:
-        buffers = [b for _, b in model.named_buffers()]
-        saved = [b.clone() for b in buffers]
+        with span("train_step.snapshot"):
+            buffers = [b for _, b in model.named_buffers()]
+            saved = [b.clone() for b in buffers]
         total, _, log_dict = forward_backward(model, loss_computer, batch)
         log_dict = {k: v.detach() for k, v in log_dict.items()}
         world = comm.get_world_size()
         if world > 1:
-            keys = sorted(log_dict)
-            values = torch.stack([total, *(log_dict[k] for k in keys)])
-            dist.all_reduce(values)
-            values /= world
-            total, log_dict = values[0], dict(zip(keys, values[1:]))
-        finite = bool(torch.isfinite(total))
+            with span("train_step.all_reduce"):
+                keys = sorted(log_dict)
+                values = torch.stack([total, *(log_dict[k] for k in keys)])
+                dist.all_reduce(values)
+                values /= world
+                total, log_dict = values[0], dict(zip(keys, values[1:]))
+        with span("train_step.finite_sync"):
+            finite = bool(torch.isfinite(total))
         if finite:
-            optimizer.step()
+            with span("train_step.optimizer"):
+                optimizer.step()
         else:
-            with torch.no_grad():
+            with span("train_step.restore"), torch.no_grad():
                 for b, old in zip(buffers, saved):
                     b.copy_(old)
         skips = 0 if finite else state.skips + 1
@@ -108,9 +123,11 @@ def make_eval_step(model: nn.Module, post_processor
     use_model_precision(model)
 
     def eval_step(batch: Tensors, output_depth: Optional[str] = None):
-        model.eval()
         with torch.inference_mode():
-            outputs = model(batch["image"], batch.get("edge_indices"), batch.get("edge_len"))
-            return post_processor(outputs, batch, output_depth=output_depth)
+            with span("eval_step.forward"):
+                model.eval()
+                outputs = model(batch["image"], batch.get("edge_indices"), batch.get("edge_len"))
+            with span("eval_step.decode"):
+                return post_processor(outputs, batch, output_depth=output_depth)
 
     return eval_step

@@ -85,7 +85,7 @@ import monoflex_tpu_torch.utils.metric_logger
 import monoflex_tpu_torch.utils.param_bridge
 import monoflex_tpu_torch.utils.precision
 import monoflex_tpu_torch.utils.registry
-import monoflex_tpu_torch.utils.timer
+import monoflex_tpu_torch.utils.trace
 import monoflex_tpu_torch.utils.visualizer
 import monoflex_tpu_torch.utils.weight_import
 from monoflex_tpu_torch.ops import dcn_cuda
