@@ -86,8 +86,10 @@ def decode_depth_from_keypoints(keypoints: torch.Tensor, dims: torch.Tensor,
     height_3d = dims[:, 1]
 
     center_h = keypoints[:, 8, 1] - keypoints[:, 9, 1]
-    corner_02_h = keypoints[:, [0, 2], 1] - keypoints[:, [4, 6], 1]
-    corner_13_h = keypoints[:, [1, 3], 1] - keypoints[:, [5, 7], 1]
+    # keypoints 0, 2 less 4, 6 and 1, 3 less 5, 7, by slices: an index list is
+    # uploaded from the host, which waits for the device's queue
+    corner_02_h = keypoints[:, 0:4:2, 1] - keypoints[:, 4:8:2, 1]
+    corner_13_h = keypoints[:, 1:4:2, 1] - keypoints[:, 5:8:2, 1]
 
     def h2d(hh):
         return torch.relu(hh) * down_ratio + eps
@@ -127,7 +129,9 @@ def decode_axes_orientation(vector_ori: torch.Tensor, locations: torch.Tensor,
     best = torch.softmax(logits, dim=2)[..., 1].argmax(dim=1)           # (N,)
     sincos = vector_ori[:, num_bin * 2:].reshape(n, num_bin, 2)
     chosen = sincos[torch.arange(n, device=vector_ori.device), best]
-    centers = torch.tensor(ALPHA_CENTERS, dtype=vector_ori.dtype, device=vector_ori.device)
+    # non-blocking: a pageable upload that blocks waits for the device's queue
+    centers = torch.tensor(ALPHA_CENTERS, dtype=vector_ori.dtype).to(vector_ori.device,
+                                                                     non_blocking=True)
     alphas = torch.atan2(chosen[:, 0], chosen[:, 1]) + centers[best]
     locations = locations.reshape(-1, 3)
     rotys = alphas + torch.atan2(locations[:, 0], locations[:, 2])

@@ -83,8 +83,10 @@ class PostProcessor:
         pred_ori = torch.cat([poi[:, k2c("ori_cls")], poi[:, k2c("ori_offset")]], dim=1)
         box2d = G.decode_box2d_fcos(points, torch.relu(poi[:, k2c("2d_dim")]), pad_size,
                                     img_size, self.down_ratio)
-        dims = G.decode_dimension(clses, poi[:, k2c("3d_dim")], self.dim_mean.to(dev),
-                                  self.dim_std.to(dev), mode=self.dim_mode[0],
+        # non-blocking: a pageable upload that blocks waits for the forward
+        dims = G.decode_dimension(clses, poi[:, k2c("3d_dim")],
+                                  self.dim_mean.to(dev, non_blocking=True),
+                                  self.dim_std.to(dev, non_blocking=True), mode=self.dim_mode[0],
                                   use_std=bool(self.dim_mode[2]))
 
         extras: Dict[str, torch.Tensor] = {}

@@ -17,7 +17,7 @@ Each part of a step is a span of ``utils/trace.py``: ``train_step.snapshot``
 ``.finite_sync`` (the host waits for the total), ``.optimizer`` (all of
 ``Optimizer.step``) or, on a skipped step, ``.restore``; with more than one
 process ``.all_reduce``.  The eval step's are ``eval_step.forward`` and
-``eval_step.decode``.
+``eval_step.decode``; its counters ``eval_step.graph_*`` (``eval_graph.py``).
 
 With more than one process (``model`` wrapped by ``parallel/mesh.py``) the
 losses are the processes' shares of the global batch's (``losses/``); one
@@ -38,6 +38,7 @@ from torch import nn
 from ..utils import comm
 from ..utils.precision import apply_precision
 from ..utils.trace import span
+from .eval_graph import GraphedForward
 from .solver import Optimizer
 
 Tensors = Dict[str, torch.Tensor]
@@ -118,16 +119,18 @@ def make_eval_step(model: nn.Module, post_processor
     """Returns eval_step(batch, output_depth=None) -> (rows (B, K, 14),
     valid (B, K), extras): the model in eval mode under
     ``torch.inference_mode``, then the decode.  ``batch`` holds tensors on
-    the model's device.  The precision flags of ``model``'s config are
-    applied here."""
+    the model's device.  On the card the forward replays a CUDA graph per
+    input signature (``eval_graph.py``); nothing returned shares its memory.
+    The precision flags of ``model``'s config are applied here."""
     use_model_precision(model)
+    forward = GraphedForward(model)
 
     def eval_step(batch: Tensors, output_depth: Optional[str] = None):
         with torch.inference_mode():
             with span("eval_step.forward"):
-                model.eval()
-                outputs = model(batch["image"], batch.get("edge_indices"), batch.get("edge_len"))
+                outputs = forward(batch["image"], batch.get("edge_indices"),
+                                  batch.get("edge_len"))
             with span("eval_step.decode"):
-                return post_processor(outputs, batch, output_depth=output_depth)
+                return forward.own(*post_processor(outputs, batch, output_depth=output_depth))
 
     return eval_step
