@@ -11,7 +11,9 @@ Phases, one line each; any failure exits non-zero and prints no result:
              each, all started together.
   3. kernel  the DCNv2 forward kernel against the plain PyTorch op at the
              neck's DCN shapes, batch 8, R=2, x in bf16: max abs error
-             against the tolerance, ms per call of each.
+             against the tolerance, ms per call of each; then the same at
+             FCOS3D's six DCN shapes (MODEL.META_ARCHITECTURE "FCOSMono3D"
+             at 1600x900), batch 6.
   4. slice   runs/monoflex.yaml at 384x1280, batch 8, seeded weights with the
              offset/mask convs perturbed off zero: one warm-up, then 3
              forward+decode passes that must launch the kernel 16 times each
@@ -185,6 +187,18 @@ DCN_SHAPES = [
     ((12, 40, 512, 256), 1),
     ((48, 160, 64, 64), 0),
     ((24, 80, 64, 64), 0),
+]
+# (H, W, C, Co) of FCOS3D's 36 DCNs (a nuScenes sample's six 1600x900 images,
+# padded to 928) and how many run at each: stage 3's 23 and the two head
+# towers' at P4, stage 4's 3, and the towers' at P3, P5, P6 and P7
+FCOS3D_BATCH = 6
+FCOS3D_DCN_SHAPES = [
+    ((58, 100, 256, 256), 25),
+    ((29, 50, 512, 512), 3),
+    ((116, 200, 256, 256), 2),
+    ((29, 50, 256, 256), 2),
+    ((15, 25, 256, 256), 2),
+    ((8, 13, 256, 256), 2),
 ]
 # the documented per-stage clamp TPU.DCN_MAX_OFFSET_PER_STAGE (monoflex_tpu/
 # config/defaults.py): its first stage, ida_0, runs at R = 8 at these shapes
@@ -384,21 +398,21 @@ def bound_of(ops: float, nbytes: float, tc_ops: float = 0):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def check_kernel() -> dict:
-    """dcn_fwd against the plain op at the neck's shapes, x in bf16 (the
-    default impl, cast inside the kernel), and bit-equal to the kernel on x
-    cast to bf16 first and on x handed over in bf16 (a bf16 model's entry,
-    also timed); the kernel is also timed with x in f32, the transfer of the
-    pallas3, pallas2, pallas2p and pallas impls."""
+def check_kernel(shapes=DCN_SHAPES, batch: int = BATCH) -> dict:
+    """dcn_fwd against the plain op at ``shapes`` (the neck's by default),
+    x in bf16 (the default impl, cast inside the kernel), and bit-equal to
+    the kernel on x cast to bf16 first and on x handed over in bf16 (a bf16
+    model's entry, also timed); the kernel is also timed with x in f32, the
+    transfer of the pallas3, pallas2, pallas2p and pallas impls."""
     worst = 0.0
     ms_fwd = plain_fwd = f32_fwd = bf16x_fwd = 0.0
     ops = nbytes = tc = 0
-    for i, ((H, W, C, Co), layers) in enumerate(DCN_SHAPES):
+    for i, ((H, W, C, Co), layers) in enumerate(shapes):
         g = torch.Generator(device="cuda").manual_seed(i)
-        x = torch.randn(BATCH, H, W, C, device="cuda", generator=g)
+        x = torch.randn(batch, H, W, C, device="cuda", generator=g)
         # fractional, and beyond +-R often enough to exercise the clamp
-        off = torch.randn(BATCH, H, W, 18, device="cuda", generator=g) * 1.5
-        mask = torch.rand(BATCH, H, W, 9, device="cuda", generator=g)
+        off = torch.randn(batch, H, W, 18, device="cuda", generator=g) * 1.5
+        mask = torch.rand(batch, H, W, 9, device="cuda", generator=g)
         w = torch.randn(3, 3, C, Co, device="cuda", generator=g) / (9 * C) ** 0.5
         b = torch.randn(Co, device="cuda", generator=g) * 0.1
         args = (x, off, mask, w, b)
@@ -422,13 +436,13 @@ def check_kernel() -> dict:
         y = kernel()
         err = (y - plain()).abs().max().item()
         if not (err <= KERNEL_TOL and torch.isfinite(y).all()):
-            raise AssertionError(f"dcn_fwd {(BATCH, H, W, C, Co)}: max abs err {err} > {KERNEL_TOL}")
+            raise AssertionError(f"dcn_fwd {(batch, H, W, C, Co)}: max abs err {err} > {KERNEL_TOL}")
         # the folded cast: f32 x rounded in the kernel as it is loaded, against
         # the kernel on x cast to bf16 first; bit-equal
         with torch.no_grad():
             cast_first = dcn_cuda._fwd_kernel(x.to(torch.bfloat16), off, mask, w, b, R)
         if not (torch.equal(y, cast_first) and torch.equal(y, kernel_bf16x())):
-            raise AssertionError(f"dcn_fwd {(BATCH, H, W, C, Co)}: the folded cast differs from "
+            raise AssertionError(f"dcn_fwd {(batch, H, W, C, Co)}: the folded cast differs from "
                                  f"cast-then-kernel by {(y - cast_first).abs().max().item()}")
         del cast_first
         # plain, kernel, kernel, plain: drift in clocks hits both sides alike
@@ -444,14 +458,15 @@ def check_kernel() -> dict:
         bf16x_fwd += layers * b_ms
         work = dcn_work("fwd", H, W, C, Co, x.element_size())
         ops, nbytes, tc = ops + layers * work[0], nbytes + layers * work[1], tc + layers * work[2]
-        phase("kernel", f"dcn_fwd B,H,W,C,Co={(BATCH, H, W, C, Co)} layers={layers} "
+        phase("kernel", f"dcn_fwd B,H,W,C,Co={(batch, H, W, C, Co)} layers={layers} "
                         f"max_abs_err={err:.3e} (tol {KERNEL_TOL}) kernel_ms={k_ms:.4f} "
                         f"plain_ms={p_ms:.4f} kernel_f32x_ms={f_ms:.4f} "
                         f"kernel_bf16x_ms={b_ms:.4f}")
         del x, x16, off, mask, w, b, args, y
     torch.cuda.empty_cache()
     bound_ms, bound_by = bound_of(ops, nbytes, tc)
-    phase("kernel", f"per forward (16 layers): kernel_ms={ms_fwd:.4f} plain_ms={plain_fwd:.4f} "
+    phase("kernel", f"per forward ({sum(n for _, n in shapes)} layers, batch {batch}): "
+                    f"kernel_ms={ms_fwd:.4f} plain_ms={plain_fwd:.4f} "
                     f"kernel_f32x_ms={f32_fwd:.4f} kernel_bf16x_ms={bf16x_fwd:.4f} (x in bf16, "
                     f"as a bf16 model gives it) "
                     f"bound_ms={bound_ms:.4f} ({bound_by}: {tc / 1e9:.1f} GFLOP on the tensor "
@@ -2219,8 +2234,9 @@ def main() -> None:
     for name, info in build_report().items():
         phase("build", f"{name}: {info}")
 
-    with watchdog("kernel", 240):
+    with watchdog("kernel", 360):
         fwd = check_kernel()
+        check_kernel(FCOS3D_DCN_SHAPES, FCOS3D_BATCH)
     with watchdog("slice", 240):
         slice_launches = run_slice()["launches"]
     with watchdog("bwd", 300):

@@ -1,0 +1,9 @@
+"""The share of the 10 Hz KITTI stream's frames whose forward replayed a
+CUDA graph (``monoflex_tpu_torch/train/eval_graph.py``), over the traced
+part."""
+
+from mfbench.metrics._eval_graph import graph_share
+
+
+def read(run):
+    return graph_share(run)

@@ -25,7 +25,7 @@ from .engine.inference import inference, inference_all_depths, to_device
 from .engine.launch import launch, on_cpu
 from .engine.trainer import do_train
 from .losses.loss_computation import LossComputer
-from .models.detector import build_model
+from .models.detector import build_model, require_trainable
 from .parallel.mesh import wrap_model
 from .train.checkpoint import Checkpointer
 from .train.solver import build_optimizer
@@ -96,6 +96,7 @@ def _train_or_evaluate(args):
     from .utils import comm
 
     cfg = setup(args)
+    require_trainable(cfg.MODEL.META_ARCHITECTURE)   # the CLI trains and evaluates on KITTI
     logger, seed = default_setup(cfg, args, rank=comm.get_rank())
     if comm.is_initialized():
         logger.info(f"process group {dist.get_backend()}: rank {comm.get_rank()} "

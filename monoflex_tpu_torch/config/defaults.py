@@ -298,3 +298,17 @@ _C.SEED = -1
 _C.CUDNN_BENCHMARK = True  # accepted for config parity; no-op on TPU
 _C.START_TIME = 0
 _C.PATHS_CATALOG = ""
+
+# ---------------------------------------------------------------------------
+# DETECTOR FAMILY (the port's own key: the JAX package has none of it)
+# ---------------------------------------------------------------------------
+# "MonoFlex" (every key above) or "FCOSMono3D": FCOS3D (Wang et al., ICCV
+# 2021 Workshops) at its published nuScenes settings, with
+# MODEL.BACKBONE.CONV_BODY "R-101" (a caffe ResNet-101 with DCNv2 in stages
+# 3 and 4), an FPN (P3-P7) and a head shared over the levels; inference
+# only.  It reads the DCN keys of TPU, INPUT's normalize,
+# DATALOADER.SIZE_DIVISIBILITY (the input's zero pad at the bottom and
+# right) and TPU.COMPUTE_DTYPE; its widths and test settings are constants
+# of models/backbone/resnet.py, models/fpn.py, models/heads/fcos3d.py and
+# decode/fcos3d.py.
+_C.MODEL.META_ARCHITECTURE = "MonoFlex"

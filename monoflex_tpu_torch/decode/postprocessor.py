@@ -198,3 +198,13 @@ class PostProcessor:
         depths = torch.where(matched, _pick(comb_d, best), comb_d.mean(dim=1))
         est_err = torch.where(matched, _pick(comb_u, best), comb_u.mean(dim=1))
         return depths, est_err
+
+
+def build_postprocessor(cfg):
+    """The decode of ``MODEL.META_ARCHITECTURE``'s head maps: ``PostProcessor``
+    for MonoFlex, ``decode/fcos3d.py::FCOS3DDecoder`` for FCOSMono3D."""
+    if cfg.MODEL.META_ARCHITECTURE == "FCOSMono3D":
+        from .fcos3d import FCOS3DDecoder
+
+        return FCOS3DDecoder()
+    return PostProcessor(cfg)

@@ -495,33 +495,56 @@ def resolve_dcn_stages(cfg) -> Tuple[Tuple[str, ...], Tuple[int, ...]]:
     the TPU's (pallas3b; DCN_KERNEL_VERSION 1 and 2 through their impls;
     "shift" without USE_PALLAS_DCN); DCN_IMPL_PER_STAGE overrides both."""
     body = cfg.MODEL.BACKBONE.CONV_BODY
-    if body == "dla34_nodcn" or is_vanilla(body):
-        impl = "none"
-    else:
-        impl = cfg.TPU.DCN_FORCE_IMPL or (
-            {1: "pallas", 2: "pallas2", 3: "pallas3b"}[cfg.TPU.DCN_KERNEL_VERSION]
-            if cfg.TPU.USE_PALLAS_DCN else "shift")
+    impl = "none" if body == "dla34_nodcn" or is_vanilla(body) else _auto_impl(cfg)
     impls = tuple(cfg.TPU.DCN_IMPL_PER_STAGE) or (impl,) * N_DCN_STAGES
     rs = tuple(cfg.TPU.DCN_MAX_OFFSET_PER_STAGE) or (cfg.TPU.DCN_MAX_OFFSET,) * N_DCN_STAGES
     return impls, rs
+
+
+def _auto_impl(cfg) -> str:
+    """DCN_FORCE_IMPL, or the TPU's automatic choice (pallas3b; DCN_KERNEL_VERSION
+    1 and 2 through their impls; "shift" without USE_PALLAS_DCN)."""
+    return cfg.TPU.DCN_FORCE_IMPL or (
+        {1: "pallas", 2: "pallas2", 3: "pallas3b"}[cfg.TPU.DCN_KERNEL_VERSION]
+        if cfg.TPU.USE_PALLAS_DCN else "shift")
+
+
+def _spec(cfg, impl: str, r, use_kernel: bool, fusable: bool) -> DCNSpec:
+    if impl not in _IMPLS:
+        raise NotImplementedError(f"DCN impl {impl!r} is not ported; served: {sorted(_IMPLS)}")
+    dtype, kernel = _IMPLS[impl]
+    return DCNSpec(int(r) if impl in BOUNDED_IMPLS else None, dtype, kernel and use_kernel,
+                   fusable and bool(cfg.TPU.DCN_FUSE_BN_RELU) and impl in _FUSABLE, impl)
+
+
+def _check_dx_kernel(cfg) -> None:
+    if cfg.TPU.DCN_DX_KERNEL not in DX_KERNELS:
+        raise ValueError(f"TPU.DCN_DX_KERNEL {cfg.TPU.DCN_DX_KERNEL!r}: one of {DX_KERNELS}")
 
 
 def resolve_dcn_specs(cfg, use_kernel: bool = True) -> Tuple[DCNSpec, ...]:
     """The DCNSpec of each neck stage (``resolve_dcn_stages``).
     ``use_kernel=False`` runs the plain op wherever the config names the
     kernel (fused or not)."""
-    if cfg.TPU.DCN_DX_KERNEL not in DX_KERNELS:
-        raise ValueError(f"TPU.DCN_DX_KERNEL {cfg.TPU.DCN_DX_KERNEL!r}: one of {DX_KERNELS}")
-    specs = []
-    for impl, r in zip(*resolve_dcn_stages(cfg)):
-        if impl not in _IMPLS:
-            raise NotImplementedError(
-                f"DCN impl {impl!r} is not ported; served: {sorted(_IMPLS)}")
-        dtype, kernel = _IMPLS[impl]
-        specs.append(DCNSpec(int(r) if impl in BOUNDED_IMPLS else None, dtype,
-                             kernel and use_kernel,
-                             bool(cfg.TPU.DCN_FUSE_BN_RELU) and impl in _FUSABLE, impl))
-    return tuple(specs)
+    _check_dx_kernel(cfg)
+    return tuple(_spec(cfg, impl, r, use_kernel, fusable=True)
+                 for impl, r in zip(*resolve_dcn_stages(cfg)))
+
+
+def resolve_dcn_spec(cfg, use_kernel: bool = True) -> DCNSpec:
+    """The one DCNSpec of a model whose DCNs all take one route (FCOS3D's
+    trunk and head): DCN_FORCE_IMPL or the automatic choice, clamped at
+    DCN_MAX_OFFSET, never fused (no fused epilogue serves a DCN followed by
+    a GroupNorm or inside a bottleneck).  The per-stage keys are the DLA
+    neck's and raise here."""
+    _check_dx_kernel(cfg)
+    if tuple(cfg.TPU.DCN_IMPL_PER_STAGE) or tuple(cfg.TPU.DCN_MAX_OFFSET_PER_STAGE):
+        raise ValueError("TPU.DCN_IMPL_PER_STAGE and DCN_MAX_OFFSET_PER_STAGE route the DLA "
+                         "neck's stages; a model without that neck takes one route")
+    impl = _auto_impl(cfg)
+    if impl == "none":
+        raise NotImplementedError("DCN impl 'none' is the DLA neck's plain-conv variant")
+    return _spec(cfg, impl, cfg.TPU.DCN_MAX_OFFSET, use_kernel, fusable=False)
 
 
 def set_dcn_specs(backbone: DLASeg, specs: Sequence[DCNSpec]) -> None:
@@ -539,7 +562,8 @@ def set_dcn_specs(backbone: DLASeg, specs: Sequence[DCNSpec]) -> None:
 def build_backbone(cfg, use_dcn_kernel: bool = True) -> nn.Module:
     """The backbone of ``MODEL.BACKBONE.CONV_BODY``: "dla34" (the DCN neck),
     "dla34_nodcn" (its topology on plain convs), "dlav0" or "dlav0_<name>"
-    (the vanilla family, ``dlav0.py``), in ``TPU.COMPUTE_DTYPE``."""
+    (the vanilla family, ``dlav0.py``), or "R-101" (FCOS3D's caffe ResNet-101
+    with DCNv2 bottlenecks, ``resnet.py``), in ``TPU.COMPUTE_DTYPE``."""
     body = cfg.MODEL.BACKBONE.CONV_BODY
     dtype = compute_dtype(cfg)
     if is_vanilla(body):
@@ -551,8 +575,12 @@ def build_backbone(cfg, use_dcn_kernel: bool = True) -> nn.Module:
         backbone = DLASeg(resolve_dcn_specs(cfg, use_dcn_kernel),
                           down_ratio=cfg.MODEL.BACKBONE.DOWN_RATIO,
                           remat=bool(cfg.TPU.REMAT_BACKBONE), use_dcn_kernel=use_dcn_kernel)
+    elif body == "R-101":
+        from .resnet import ResNetCaffe
+
+        backbone = ResNetCaffe(resolve_dcn_spec(cfg, use_dcn_kernel))
     else:
         raise NotImplementedError(f"backbone {body!r}: one of 'dla34', 'dla34_nodcn', "
-                                  f"'dlav0', 'dlav0_<name>'")
+                                  f"'dlav0', 'dlav0_<name>', 'R-101'")
     set_compute_dtype(backbone, dtype)
     return backbone

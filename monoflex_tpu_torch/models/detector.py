@@ -1,5 +1,7 @@
-"""Detector shell: on-device normalize -> backbone -> predictor (counterpart of
-``monoflex_tpu/models/detector.py``).
+"""Detector shells: on-device normalize -> backbone -> predictor (counterpart of
+``monoflex_tpu/models/detector.py``), and FCOS3D (``FCOSMono3D``: normalize
+and pad -> caffe ResNet -> FPN -> the five-level head), which the JAX
+package does not have.  ``MODEL.META_ARCHITECTURE`` chooses one.
 
 Input images are NHWC as in the JAX package: uint8 is normalized here
 (/255, optional BGR flip, mean/std), anything else is taken as already
@@ -11,18 +13,38 @@ contiguous per pixel) and the one cuDNN prefers.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 from torch import nn
 
-from ..utils.precision import apply_precision, resolve_precision
-from .backbone.dla import DCN, BilinearUp, build_backbone
+from ..utils.precision import apply_precision, compute_dtype, resolve_precision
+from .backbone.dla import DCN, BilinearUp, build_backbone, resolve_dcn_spec
+from .backbone.resnet import ResNetCaffe
+from .fpn import FPN
+from .heads.fcos3d import STRIDES, FCOS3DHead
 from .heads.predictor import Predictor, build_predictor
+from .layers import set_compute_dtype
+
+META_ARCHITECTURES = ("MonoFlex", "FCOSMono3D")
+
+
+def normalize(images: torch.Tensor, mean: torch.Tensor, std: torch.Tensor,
+              to_bgr: bool) -> torch.Tensor:
+    """uint8 NHWC images to (x / 255 [flipped to BGR] - mean) / std;
+    anything else as it is."""
+    if images.dtype != torch.uint8:
+        return images
+    x = images.float() / 255.0
+    if to_bgr:
+        x = x.flip(-1)
+    return (x - mean) / std
 
 
 class MonoFlex(nn.Module):
     """KeypointDetector equivalent; returns the raw head maps (NCHW)."""
+
+    arch = "MonoFlex"     # its MODEL.META_ARCHITECTURE
 
     def __init__(self, backbone: nn.Module, predictor: Predictor,
                  pixel_mean: Sequence[float] = (0.485, 0.456, 0.406),
@@ -43,13 +65,43 @@ class MonoFlex(nn.Module):
 
     def forward(self, images: torch.Tensor, edge_indices: Optional[torch.Tensor] = None,
                 edge_len: Optional[torch.Tensor] = None) -> Dict[str, object]:
-        if images.dtype == torch.uint8:
-            x = images.float() / 255.0
-            if self.to_bgr:
-                x = x.flip(-1)
-            images = (x - self.pixel_mean) / self.pixel_std
+        images = normalize(images, self.pixel_mean, self.pixel_std, self.to_bgr)
         features = self.backbone(images.permute(0, 3, 1, 2))
         return self.heads["predictor"](features, edge_indices, edge_len)
+
+
+class FCOSMono3D(MonoFlex):
+    """FCOS3D: the normalized image zero-padded at the bottom and right to a
+    multiple of ``size_divisor``, the trunk's C3-C5, the FPN's P3-P7, the
+    head.  Returns one f32 map a level (``heads/fcos3d.py::fields``); the
+    edge inputs of the MonoFlex signature are taken and not read."""
+
+    arch = "FCOSMono3D"
+
+    def __init__(self, backbone: nn.Module, fpn: FPN, head: FCOS3DHead, size_divisor: int,
+                 **normalize_kw):
+        super().__init__(backbone, head, **normalize_kw)
+        self.fpn = fpn
+        self.size_divisor = size_divisor
+
+    def forward(self, images: torch.Tensor, edge_indices: Optional[torch.Tensor] = None,
+                edge_len: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
+        x = normalize(images, self.pixel_mean, self.pixel_std, self.to_bgr)
+        d = self.size_divisor
+        if d > 1:
+            H, W = x.shape[1:3]
+            x = torch.nn.functional.pad(x, (0, 0, 0, -W % d, 0, -H % d))
+        return self.heads["predictor"](self.fpn(self.backbone(x.permute(0, 3, 1, 2))))
+
+
+def require_trainable(arch: str) -> None:
+    """Raise unless the training entry points can train the meta-architecture
+    ``arch`` (the config's ``MODEL.META_ARCHITECTURE``)."""
+    if arch != "MonoFlex":
+        raise NotImplementedError(
+            f"MODEL.META_ARCHITECTURE {arch!r} runs on the evaluation path only "
+            f"(build_model, make_eval_step): its training (target assignment over the FPN "
+            f"levels, its losses) is not ported")
 
 
 @torch.no_grad()
@@ -74,7 +126,7 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
             m.weight.fill_(1.0)
             m.bias.zero_()
     for m in model.modules():
-        if isinstance(m, (DCN, BilinearUp, Predictor, MonoFlex)):
+        if isinstance(m, (DCN, BilinearUp, Predictor, FCOS3DHead, MonoFlex)):
             m.reset_parameters(generator)
 
 
@@ -86,13 +138,35 @@ def build_model(cfg, device="cuda", seed: int = 0, use_dcn_kernel: bool = True) 
     precision flags from ``cfg`` (``utils/precision.py``) and keeps them as
     ``model.precision``, which the train and eval steps apply again."""
     precision = apply_precision(resolve_precision(cfg))
+    arch = cfg.MODEL.META_ARCHITECTURE
+    if arch not in META_ARCHITECTURES:
+        raise NotImplementedError(f"MODEL.META_ARCHITECTURE {arch!r}: one of {META_ARCHITECTURES}")
+    normalize_kw = dict(pixel_mean=tuple(cfg.INPUT.PIXEL_MEAN),
+                        pixel_std=tuple(cfg.INPUT.PIXEL_STD), to_bgr=bool(cfg.INPUT.TO_BGR))
     with torch.device("meta"):
         backbone = build_backbone(cfg, use_dcn_kernel)
-        model = MonoFlex(backbone, build_predictor(cfg, in_channels=backbone.out_channels),
-                         pixel_mean=tuple(cfg.INPUT.PIXEL_MEAN),
-                         pixel_std=tuple(cfg.INPUT.PIXEL_STD),
-                         to_bgr=bool(cfg.INPUT.TO_BGR))
+        if isinstance(backbone, ResNetCaffe) != (arch == "FCOSMono3D"):
+            raise NotImplementedError(
+                f"MODEL.META_ARCHITECTURE {arch!r} does not take MODEL.BACKBONE.CONV_BODY "
+                f"{cfg.MODEL.BACKBONE.CONV_BODY!r}: FCOSMono3D takes the ResNets, MonoFlex the "
+                f"DLA trunks")
+        if arch == "MonoFlex":
+            model = MonoFlex(backbone, build_predictor(cfg, in_channels=backbone.out_channels),
+                             **normalize_kw)
+        else:
+            model = _fcos3d(cfg, backbone, use_dcn_kernel, normalize_kw)
     model = model.to_empty(device=device)
     init_parameters(model, torch.Generator().manual_seed(seed))
     model.precision = precision
     return model.to(memory_format=torch.channels_last).eval()
+
+
+def _fcos3d(cfg, backbone: nn.Module, use_dcn_kernel: bool, normalize_kw: Dict) -> FCOSMono3D:
+    """FCOS3D of ``cfg`` on its trunk (``MODEL.BACKBONE.CONV_BODY`` "R-101");
+    the FPN and the head's towers and branches in the compute dtype."""
+    fpn = FPN(backbone.out_channels, extra=len(STRIDES) - len(backbone.out_channels))
+    head = FCOS3DHead(fpn.out_channels, resolve_dcn_spec(cfg, use_dcn_kernel))
+    dtype = compute_dtype(cfg)
+    for m in [fpn, *head.towers()]:
+        set_compute_dtype(m, dtype)
+    return FCOSMono3D(backbone, fpn, head, int(cfg.DATALOADER.SIZE_DIVISIBILITY), **normalize_kw)

@@ -9,9 +9,9 @@ otherwise), with flax's semantics:
   a bf16 convolution in f32 and rounds its output to bf16), and the bias
   added after the convolution, in the compute dtype, as ``flax.linen.Conv``
   adds it;
-- ``GroupNorm``: flax's ``GroupNorm`` (epsilon 1e-6, not torch's 1e-5), its
-  statistics and normalisation in f32, its output cast once to the compute
-  dtype;
+- ``GroupNorm``: flax's ``GroupNorm`` (epsilon 1e-6, not torch's 1e-5,
+  unless the caller gives one), its statistics and normalisation in f32,
+  its output cast once to the compute dtype;
 - the BatchNorms of ``models/batchnorm.py`` and the modules of
   ``models/backbone`` that cast (the trunk's input, the transposed
   convolution's kernel) read the same attribute.
@@ -43,8 +43,8 @@ class Conv2d(nn.Conv2d):
 class GroupNorm(nn.GroupNorm):
     compute_dtype = torch.float32
 
-    def __init__(self, channels: int):
-        super().__init__(GN_GROUPS, channels, eps=GN_EPS)
+    def __init__(self, channels: int, eps: float = GN_EPS):
+        super().__init__(GN_GROUPS, channels, eps=eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.group_norm(x.float(), self.num_groups, self.weight, self.bias,

@@ -35,6 +35,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from ..models.detector import require_trainable
 from ..utils import comm
 from ..utils.precision import apply_precision
 from ..utils.trace import span
@@ -80,7 +81,9 @@ def use_model_precision(model: nn.Module) -> None:
 def make_train_step(model: nn.Module, loss_computer, optimizer: Optimizer
                     ) -> Callable[[TrainState, Tensors], Tuple[TrainState, Dict[str, object]]]:
     """Returns train_step(state, batch) -> (state, metrics), under the
-    precision flags of ``model``'s config."""
+    precision flags of ``model``'s config; raises for a model whose training
+    is not ported (FCOSMono3D)."""
+    require_trainable(getattr(getattr(model, "module", model), "arch", "MonoFlex"))
     use_model_precision(model)
 
     def train_step(state: TrainState, batch: Tensors) -> Tuple[TrainState, Dict[str, object]]:
@@ -116,10 +119,13 @@ def make_train_step(model: nn.Module, loss_computer, optimizer: Optimizer
 
 def make_eval_step(model: nn.Module, post_processor
                    ) -> Callable[..., Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]]:
-    """Returns eval_step(batch, output_depth=None) -> (rows (B, K, 14),
+    """Returns eval_step(batch, output_depth=None) -> (rows (B, K, D),
     valid (B, K), extras): the model in eval mode under
-    ``torch.inference_mode``, then the decode.  ``batch`` holds tensors on
-    the model's device.  On the card the forward replays a CUDA graph per
+    ``torch.inference_mode``, then the decode, whose rows are its own: D = 14
+    and K = TEST.DETECTIONS_PER_IMG from ``PostProcessor``, D = ``ROW`` (12)
+    and K = ``MAX_PER_IMG`` (200) from ``decode/fcos3d.py::FCOS3DDecoder``
+    (``decode/postprocessor.py::build_postprocessor`` picks the config's).
+    ``batch`` holds tensors on the model's device.  On the card the forward replays a CUDA graph per
     input signature (``eval_graph.py``); nothing returned shares its memory.
     The precision flags of ``model``'s config are applied here."""
     use_model_precision(model)

@@ -1,7 +1,10 @@
 """The port's own config package against the JAX package's: the same tree, as a
 plain dict, for the defaults and for every ``runs/*.yaml`` merged in, the
 same class-id tables and dataset catalog, and the same merge behaviour.  It
-also catches the two copies drifting apart."""
+also catches the two copies drifting apart.  The port's tree has the keys of
+the models the JAX package lacks (``PORT_ONLY``: the meta-architecture)
+besides; the comparisons leave it out, and ``test_the_port_only_keys``
+holds the port to that list."""
 
 import glob
 import os
@@ -14,6 +17,15 @@ from monoflex_tpu.config.node import _to_plain as jax_plain
 from monoflex_tpu_torch.config.node import _to_plain
 
 RUNS = sorted(glob.glob(os.path.join(os.path.dirname(__file__), "..", "runs", "*.yaml")))
+PORT_ONLY = (("MODEL", "META_ARCHITECTURE"),)
+
+
+def shared(cfg):
+    """A copy of the port's ``cfg`` without the ``PORT_ONLY`` keys."""
+    out = cfg.clone()
+    for group, key in PORT_ONLY:
+        del out[group][key]
+    return out
 
 
 def test_there_are_run_configs():
@@ -34,8 +46,16 @@ def test_config_equals_jax_config(yaml_path):
         ours.merge_from_file(yaml_path)
         theirs.merge_from_file(yaml_path)
     assert type(ours) is P.CfgNode and type(theirs) is J.CfgNode
-    assert _to_plain(ours) == jax_plain(theirs)
-    assert ours.dump() == theirs.dump()
+    assert _to_plain(shared(ours)) == jax_plain(theirs)
+    assert shared(ours).dump() == theirs.dump()
+    assert ours.MODEL.META_ARCHITECTURE == "MonoFlex"
+
+
+def test_the_port_only_keys():
+    ours, theirs = P.get_cfg_defaults(), J.get_cfg_defaults()
+    extra = {(g, k) for g in ours for k in (ours[g] if isinstance(ours[g], P.CfgNode) else ())
+             if k not in theirs[g]} | {(g, None) for g in ours if g not in theirs}
+    assert extra == set(PORT_ONLY)
 
 
 def test_class_tables_and_catalog_equal_jax():
@@ -54,7 +74,7 @@ def test_command_line_overrides_merge_alike(opts):
     ours, theirs = P.get_cfg_defaults(), J.get_cfg_defaults()
     ours.merge_from_list(list(opts))
     theirs.merge_from_list(list(opts))
-    assert _to_plain(ours) == jax_plain(theirs)
+    assert _to_plain(shared(ours)) == jax_plain(theirs)
 
 
 @pytest.mark.parametrize("opts,error", [

@@ -1,7 +1,7 @@
 """The port stands alone: importing its inference, training (the CLI, the
 loop, checkpoints, launch and data parallelism), evaluation and
 kernel-diagnostics paths, every model configuration (the dlav0 family, the
-compute-dtype layers) and the DCN offset guard, the C++ evaluator's loader,
+compute-dtype layers, FCOS3D) and the DCN offset guard, the C++ evaluator's loader,
 the visualizer, the reference-checkpoint loader, the multi-process dry run,
 the small modules (PSROI pooling, uncertainty weights, adaptive clipping,
 structures, registry), the tools (convergence gate, offset statistics,
@@ -38,6 +38,10 @@ import monoflex_tpu_torch.decode.diagnostics
 import monoflex_tpu_torch.decode.kitti_writer
 import monoflex_tpu_torch.decode.nms
 import monoflex_tpu_torch.decode.postprocessor
+import monoflex_tpu_torch.decode.fcos3d
+import monoflex_tpu_torch.models.backbone.resnet
+import monoflex_tpu_torch.models.fpn
+import monoflex_tpu_torch.models.heads.fcos3d
 import monoflex_tpu_torch.engine.defaults
 import monoflex_tpu_torch.engine.inference
 import monoflex_tpu_torch.engine.launch
