@@ -6,7 +6,7 @@ encode half (``rad_to_matrix``, ``encode_box3d``) the losses."""
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Dict, Hashable, Optional, Sequence
 
 import torch
 
@@ -19,6 +19,22 @@ ALPHA_CENTERS = (0.0, PI / 2, PI, -PI / 2)
 _CORNER_INDEX = ((4, 5, 0, 1, 6, 7, 2, 3),
                  (0, 1, 2, 3, 4, 5, 6, 7),
                  (4, 0, 1, 5, 6, 2, 3, 7))
+
+_CONSTANTS: Dict[Hashable, torch.Tensor] = {}
+
+
+def device_constant(values: Sequence, device: torch.device,
+                    dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``torch.tensor(values, dtype=dtype)`` on ``device``, uploaded once and
+    kept (``values`` a tuple, nested for more dims): an upload from the
+    host waits for the device's queue, and a CUDA graph cannot capture it.
+    Made outside inference mode, so that autograd may save it."""
+    key = (values, dtype, device)
+    table = _CONSTANTS.get(key)
+    if table is None:
+        with torch.inference_mode(False):
+            table = _CONSTANTS[key] = torch.tensor(values, dtype=dtype).to(device)
+    return table
 
 
 def rad_to_matrix(rotys: torch.Tensor) -> torch.Tensor:
@@ -37,7 +53,7 @@ def encode_box3d(rotys: torch.Tensor, dims: torch.Tensor, locs: torch.Tensor) ->
     half = dims.reshape(-1, 3) * 0.5
     plus_minus = torch.cat([half[..., None].expand(-1, 3, 4),
                             -half[..., None].expand(-1, 3, 4)], dim=-1)     # (N, 3, 8)
-    index = torch.tensor(_CORNER_INDEX, device=plus_minus.device)
+    index = device_constant(_CORNER_INDEX, plus_minus.device)
     box_obj = plus_minus.gather(2, index.expand(plus_minus.shape[0], 3, 8))
     corners = rad_to_matrix(rotys) @ box_obj + locs.reshape(-1, 3)[..., None]
     return corners.transpose(1, 2)
@@ -129,9 +145,7 @@ def decode_axes_orientation(vector_ori: torch.Tensor, locations: torch.Tensor,
     best = torch.softmax(logits, dim=2)[..., 1].argmax(dim=1)           # (N,)
     sincos = vector_ori[:, num_bin * 2:].reshape(n, num_bin, 2)
     chosen = sincos[torch.arange(n, device=vector_ori.device), best]
-    # non-blocking: a pageable upload that blocks waits for the device's queue
-    centers = torch.tensor(ALPHA_CENTERS, dtype=vector_ori.dtype).to(vector_ori.device,
-                                                                     non_blocking=True)
+    centers = device_constant(ALPHA_CENTERS, vector_ori.device, vector_ori.dtype)
     alphas = torch.atan2(chosen[:, 0], chosen[:, 1]) + centers[best]
     locations = locations.reshape(-1, 3)
     rotys = alphas + torch.atan2(locations[:, 0], locations[:, 2])

@@ -44,9 +44,10 @@ class LossComputer:
         self.uncertainty_range = tuple(h.UNCERTAINTY_RANGE)
         self.corner_loss_depth = h.CORNER_LOSS_DEPTH
         self.modify_invalid_keypoint_depths = h.MODIFY_INVALID_KEYPOINT_DEPTH
-        self.dim_weight = torch.tensor(h.DIMENSION_WEIGHT, dtype=torch.float32).reshape(1, 3)
-        self.dim_mean = torch.tensor(h.DIMENSION_MEAN, dtype=torch.float32)
-        self.dim_std = torch.tensor(h.DIMENSION_STD, dtype=torch.float32)
+        # class tables, put on the loss's device once (``G.device_constant``)
+        self.dim_weight = (tuple(h.DIMENSION_WEIGHT),)
+        self.dim_mean = tuple(map(tuple, h.DIMENSION_MEAN))
+        self.dim_std = tuple(map(tuple, h.DIMENSION_STD))
         self.dim_mode = h.DIMENSION_REG
         self.depth_mode = h.DEPTH_MODE
         self.depth_range = tuple(h.DEPTH_RANGE)
@@ -105,7 +106,8 @@ class LossComputer:
         M = self.max_objs
         N = B * M
         dev = reg_maps[0].device
-        dim_mean, dim_std = self.dim_mean.to(dev), self.dim_std.to(dev)
+        dim_mean, dim_std, dim_weight = (G.device_constant(t, dev, torch.float32) for t in
+                                         (self.dim_mean, self.dim_std, self.dim_weight))
 
         def flat(x, *trailing):
             return x.reshape((N,) + trailing)
@@ -191,7 +193,7 @@ class LossComputer:
             pred_ori, target_ori, mask3d, self.num_bin, count)
 
         # ---- dimensions ----
-        dims_l = (self._reg_fn(pred_dims, target_dims) * self.dim_weight.to(dev)).sum(dim=1)
+        dims_l = (self._reg_fn(pred_dims, target_dims) * dim_weight).sum(dim=1)
         loss_dict["dims_loss"] = w["dims_loss"] * mean(dims_l, mask3d)
 
         # ---- keypoints + keypoint depths ----

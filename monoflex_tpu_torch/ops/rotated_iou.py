@@ -74,7 +74,9 @@ def iou_3d_pairs(pred_corners: torch.Tensor, target_corners: torch.Tensor) -> to
     min_h_b, max_h_b = -B[:, 0:4, 1].mean(dim=1), -B[:, 4:8, 1].mean(dim=1)
     h_overlap = (torch.minimum(max_h_a, max_h_b) - torch.maximum(min_h_a, min_h_b)).clamp(min=0)
 
-    bev_a, bev_b = A[:, 0:4][..., [0, 2]], B[:, 0:4][..., [0, 2]]
+    # (x, z) by a slice: an index list is uploaded from the host, which a
+    # CUDA graph cannot capture
+    bev_a, bev_b = A[:, 0:4, 0::2], B[:, 0:4, 0::2]
     inter_bev = _intersection_area(bev_a, bev_b)
     area_a, area_b = _area(_orient_ccw(bev_a)), _area(_orient_ccw(bev_b))
     overlap3d = inter_bev * h_overlap

@@ -91,15 +91,19 @@ def _tensors(obj) -> List[torch.Tensor]:
     return [t for v in obj for t in _tensors(v)]
 
 
-def _walk(model: nn.Module) -> Optional[Tuple[bool, tuple, tuple]]:
+def _walk(model: nn.Module, backward: bool = False
+          ) -> Optional[Tuple[bool, bool, tuple, tuple]]:
     """One pass over ``model``'s modules, made on every call (written for
     speed: ``model.modules()`` alone takes twice as long): whether any module
-    is in training mode, the DCN specs and the addresses of the parameters
-    and buffers; None where a module has a forward hook (its Python must run
-    on every call)."""
+    is in training mode, whether every module is, the DCN specs and the
+    addresses of the parameters and buffers; None where a module has a
+    forward hook (its Python must run on every call) or, with ``backward``,
+    a backward hook, or a parameter a gradient hook."""
     if _module._global_forward_hooks or _module._global_forward_pre_hooks:
         return None
-    training = False
+    if backward and (_module._global_backward_hooks or _module._global_backward_pre_hooks):
+        return None
+    any_training, all_training = False, True
     ptrs: List[int] = []
     specs = []
     stack = [model]
@@ -111,10 +115,16 @@ def _walk(model: nn.Module) -> Optional[Tuple[bool, tuple, tuple]]:
         d = m.__dict__
         if d["_forward_hooks"] or d["_forward_pre_hooks"]:
             return None
+        if backward and (d["_backward_hooks"] or d["_backward_pre_hooks"]):
+            return None
         if d["training"]:
-            training = True
+            any_training = True
+        else:
+            all_training = False
         for t in d["_parameters"].values():
             if t is not None:
+                if backward and (t._backward_hooks or t._post_accumulate_grad_hooks):
+                    return None
                 add(t.data_ptr())
         for t in d["_buffers"].values():
             if t is not None:
@@ -122,7 +132,7 @@ def _walk(model: nn.Module) -> Optional[Tuple[bool, tuple, tuple]]:
         push(d["_modules"].values())
         if isinstance(m, DCN):
             specs.append(m.spec)
-    return training, tuple(specs), tuple(ptrs)
+    return any_training, all_training, tuple(specs), tuple(ptrs)
 
 
 def _key(inputs: Inputs, specs: tuple, ptrs: tuple) -> Hashable:
@@ -134,7 +144,7 @@ def signature(model: nn.Module, inputs: Inputs) -> Optional[Hashable]:
     """The key of a forward of ``model`` on ``inputs``; None where a module
     has a forward hook."""
     walked = _walk(model)
-    return None if walked is None else _key(inputs, *walked[1:])
+    return None if walked is None else _key(inputs, *walked[2:])
 
 
 def graphable(inputs: Inputs) -> bool:
@@ -176,7 +186,7 @@ class GraphedForward:
         if walked is None:
             self.model.eval()
             return self.model(*inputs)
-        training, specs, ptrs = walked
+        training, _, specs, ptrs = walked
         if training:
             # eval() sets every module's flag through nn.Module.__setattr__:
             # 1-2 ms of host time, spent only where a flag is set

@@ -170,15 +170,19 @@ class Optimizer:
         for g in grads:
             g.mul_(scale)
 
-    def step(self) -> None:
-        """One update from the gradients in ``.grad``.  A parameter the loss
-        does not reach gets a zero gradient, as JAX gives it, so weight decay
-        and the moments still move it."""
+    def prepare_gradients(self) -> None:
+        """The gradients as the update takes them: a parameter the loss does
+        not reach gets a zero gradient, as JAX gives it, so weight decay and
+        the moments still move it; then the clip."""
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         if self.grad_clip > 0:
             self._clip()
+
+    def step(self) -> None:
+        """One update from the gradients in ``.grad``."""
+        self.prepare_gradients()
         lr = self.schedule(self.count)
         for group in self.inner.param_groups:
             group["lr"] = lr * group["lr_factor"]
@@ -241,6 +245,163 @@ class Optimizer:
         self.count = int(state["count"])
         if self.ema is not None:
             self.ema.load_state_dict(state["ema"])
+
+
+# the values of a parameter group in ``DeviceUpdate.values``, in this order:
+# AdamW's decay factor 1 - lr wd, the first moment's lerp weight 1 - beta1,
+# sqrt(1 - beta2^t) and the step size -lr / (1 - beta1^t); the EMA's decay d
+# and 1 - d follow the groups
+_DECAY, _LERP, _BC2, _STEP = range(4)
+_PER_GROUP = 4
+
+
+def device_update_refusal(opt: Optimizer) -> Optional[str]:
+    """Why ``DeviceUpdate`` cannot take ``opt``'s step, or None: it mirrors
+    the stock ``Optimizer.step`` around torch's foreach Adam and AdamW."""
+    if "step" in vars(opt) or type(opt).step is not Optimizer.step:
+        return "its step is replaced"
+    inner = opt.inner
+    if type(inner) not in (torch.optim.Adam, torch.optim.AdamW):
+        return f"{type(inner).__name__} has no device update (Adam and AdamW have)"
+    for group in inner.param_groups:
+        for flag in ("amsgrad", "maximize", "capturable", "differentiable", "fused"):
+            if group.get(flag):
+                return f"{flag}=True"
+        if group.get("foreach") is False:
+            return "foreach=False"
+        if any(p.dtype != torch.float32 or p.device.type != "cuda" for p in group["params"]):
+            return "a parameter is not float32 on the card"
+    return None
+
+
+class _Group:
+    """One parameter group's tensors and the settings a graph bakes in."""
+
+    def __init__(self, inner: torch.optim.Optimizer, group: dict, momentum: bool):
+        self.group = group
+        self.params = list(group["params"])
+        states = [inner.state[p] for p in self.params]
+        self.exp_avgs = [s["exp_avg"] for s in states]
+        self.exp_avg_sqs = [s["exp_avg_sq"] for s in states]
+        self.steps = [s["step"] for s in states]
+        if len({float(t) for t in self.steps}) != 1:
+            raise ValueError("the group's parameters have taken different numbers of steps")
+        self.beta1 = None if momentum else group["betas"][0]
+        self.beta2, self.eps = group["betas"][1], group["eps"]
+        self.weight_decay = group["weight_decay"]
+        self.decoupled = group.get("decoupled_weight_decay",
+                                   isinstance(inner, torch.optim.AdamW))
+
+
+class DeviceUpdate:
+    """``Optimizer.step`` after ``prepare_gradients`` as device ops a CUDA
+    graph can hold (``train/train_graph.py``).  ``apply`` launches the ops of
+    torch's foreach Adam(W) and of ``ParamEma.update``, with the same
+    arithmetic, but every value that changes from step to step (a group's
+    LR, the schedule at ``count`` times its factor; one-cycle's beta1;
+    Adam's bias corrections; the EMA's decay) is read from ``values``, a
+    device tensor that ``write`` fills before each replay, never baked into
+    the graph.  A product with such a value runs as ``mul_``, ``lerp_`` or
+    ``addcmul_`` with a 0-dim device tensor, which rounds as the op with a
+    Python scalar does (the same fused multiply-adds; bit for bit in
+    ``tests/test_torch_train_graph.py``).  The host's counters (``count``,
+    each parameter's Adam ``step``, the groups' ``lr`` and ``betas``, the
+    EMA's count) move in ``commit``, once the step is known to be taken.
+
+    Built outside the capture, for an optimizer ``device_update_refusal``
+    accepts, with moments for every parameter it updates (after one step);
+    ``write`` reuses one pinned buffer, so a step's values must have reached
+    the card (the caller's read of the step's flag) before the next write."""
+
+    def __init__(self, opt: Optimizer):
+        reason = device_update_refusal(opt)
+        if reason is not None:
+            raise ValueError(f"no device update for this optimizer: {reason}")
+        self.opt = opt
+        inner = opt.inner
+        self.groups = [_Group(inner, g, opt.momentum is not None)
+                       for g in inner.param_groups if g["params"]]
+        if not self.groups:
+            raise ValueError("no parameter to update")
+        self.steps = [t for g in self.groups for t in g.steps]
+        self.ema_pairs: List[Tuple[torch.Tensor, nn.Parameter]] = []
+        if opt.ema is not None:
+            self.ema_pairs = [(opt.ema.shadow[n], p) for n, p in opt.model.named_parameters()]
+        device = self.groups[0].params[0].device
+        n = _PER_GROUP * len(self.groups) + 2
+        self.values = torch.zeros(n, dtype=torch.float32, device=device)
+        self._host = torch.zeros(n, dtype=torch.float32, pin_memory=True)
+
+    def state(self) -> List[torch.Tensor]:
+        """Every tensor ``apply`` writes: the parameters, the moments and the
+        EMA shadows."""
+        return ([t for g in self.groups for t in g.params + g.exp_avgs + g.exp_avg_sqs]
+                + [s for s, _ in self.ema_pairs])
+
+    def write(self) -> None:
+        """This step's values, from the host's counters, into ``values``."""
+        opt = self.opt
+        lr = opt.schedule(opt.count)
+        beta1 = None if opt.momentum is None else opt.momentum(opt.count)
+        row = []
+        for g in self.groups:
+            glr = lr * g.group["lr_factor"]
+            b1 = g.beta1 if beta1 is None else beta1
+            t = float(g.steps[0]) + 1.0
+            bc1, bc2 = 1 - b1 ** t, 1 - g.beta2 ** t
+            row += [1 - glr * g.weight_decay, 1 - b1, bc2 ** 0.5, (glr / bc1) * -1]
+        if opt.ema is None:
+            row += [0.0, 0.0]
+        else:
+            n = opt.ema.count + 1
+            d = min(opt.ema.decay, (1.0 + n) / (10.0 + n))
+            row += [d, 1.0 - d]
+        self._host.numpy()[:] = row
+        self.values.copy_(self._host, non_blocking=True)
+
+    @torch.no_grad()
+    def apply(self) -> None:
+        """The update and the EMA from the gradients in ``.grad``."""
+        v = self.values
+        for i, g in enumerate(self.groups):
+            P, M, V = g.params, g.exp_avgs, g.exp_avg_sqs
+            G = [p.grad for p in P]
+            row = i * _PER_GROUP
+            if g.weight_decay != 0:
+                if g.decoupled:
+                    torch._foreach_mul_(P, v[row + _DECAY])
+                else:
+                    G = torch._foreach_add(G, P, alpha=g.weight_decay)
+            if g.beta1 is not None:
+                torch._foreach_lerp_(M, G, 1 - g.beta1)
+            else:
+                for m, grad in zip(M, G):
+                    m.lerp_(grad, v[row + _LERP])
+            torch._foreach_mul_(V, g.beta2)
+            torch._foreach_addcmul_(V, G, G, 1 - g.beta2)
+            den = torch._foreach_sqrt(V)
+            torch._foreach_div_(den, v[row + _BC2])
+            torch._foreach_add_(den, g.eps)
+            step = v[row + _STEP]
+            for p, q in zip(P, torch._foreach_div(M, den)):
+                p.addcmul_(q, step)
+        if self.ema_pairs:
+            torch._foreach_mul_([s for s, _ in self.ema_pairs], v[-2])
+            for s, p in self.ema_pairs:
+                s.addcmul_(p, v[-1])
+
+    def commit(self) -> None:
+        """Move the host's counters as a taken ``Optimizer.step`` does."""
+        opt = self.opt
+        lr = opt.schedule(opt.count)
+        for group in opt.inner.param_groups:
+            group["lr"] = lr * group["lr_factor"]
+            if opt.momentum is not None:
+                group["betas"] = (opt.momentum(opt.count), group["betas"][1])
+        torch._foreach_add_(self.steps, 1.0)
+        opt.count += 1
+        if opt.ema is not None:
+            opt.ema.count += 1
 
 
 def lr_factors(name: str, cfg) -> Tuple[bool, float]:

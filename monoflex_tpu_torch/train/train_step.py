@@ -12,12 +12,21 @@ while ``step`` and ``skips`` advance.  Deciding that costs one host sync per
 step, on the total loss.  ``make_eval_step`` is the evaluation path's
 forward and decode.
 
-Each part of a step is a span of ``utils/trace.py``: ``train_step.snapshot``
-(the BN buffers' copy), ``.forward``, ``.loss``, ``.backward``,
-``.finite_sync`` (the host waits for the total), ``.optimizer`` (all of
-``Optimizer.step``) or, on a skipped step, ``.restore``; with more than one
-process ``.all_reduce``.  The eval step's are ``eval_step.forward`` and
-``eval_step.decode``; its counters ``eval_step.graph_*`` (``eval_graph.py``).
+On the card, in one process, the step replays one CUDA graph per batch
+signature (``train_graph.py``): the same kernels, the isfinite decided on
+the card and read once, after the whole step is enqueued.  The eager step
+below runs on the CPU, under data parallelism, on a signature's first call
+and wherever a capture fails.
+
+Each part of an eager step is a span of ``utils/trace.py``:
+``train_step.snapshot`` (the BN buffers' copy), ``.forward``, ``.loss``,
+``.backward``, ``.finite_sync`` (the host waits for the total),
+``.optimizer`` (all of ``Optimizer.step``) or, on a skipped step,
+``.restore``; with more than one process ``.all_reduce``.  A replayed step
+records ``.forward`` (the call that issues the graph), ``.finite_sync`` and
+``.restore`` only; its counters are ``train_step.graph_*``.  The eval
+step's spans are ``eval_step.forward`` and ``eval_step.decode``; its
+counters ``eval_step.graph_*`` (``eval_graph.py``).
 
 With more than one process (``model`` wrapped by ``parallel/mesh.py``) the
 losses are the processes' shares of the global batch's (``losses/``); one
@@ -41,6 +50,7 @@ from ..utils.precision import apply_precision
 from ..utils.trace import span
 from .eval_graph import GraphedForward
 from .solver import Optimizer
+from .train_graph import TrainGraphs
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -81,12 +91,13 @@ def use_model_precision(model: nn.Module) -> None:
 def make_train_step(model: nn.Module, loss_computer, optimizer: Optimizer
                     ) -> Callable[[TrainState, Tensors], Tuple[TrainState, Dict[str, object]]]:
     """Returns train_step(state, batch) -> (state, metrics), under the
-    precision flags of ``model``'s config; raises for a model whose training
-    is not ported (FCOSMono3D)."""
+    precision flags of ``model``'s config, replayed from CUDA graphs where it
+    can be (``train_graph.py``); raises for a model whose training is not
+    ported (FCOSMono3D)."""
     require_trainable(getattr(getattr(model, "module", model), "arch", "MonoFlex"))
     use_model_precision(model)
 
-    def train_step(state: TrainState, batch: Tensors) -> Tuple[TrainState, Dict[str, object]]:
+    def eager_step(state: TrainState, batch: Tensors) -> Tuple[TrainState, Dict[str, object]]:
         with span("train_step.snapshot"):
             buffers = [b for _, b in model.named_buffers()]
             saved = [b.clone() for b in buffers]
@@ -114,7 +125,7 @@ def make_train_step(model: nn.Module, loss_computer, optimizer: Optimizer
                    "consecutive_skips": float(skips), **log_dict}
         return TrainState(step=state.step + 1, skips=skips), metrics
 
-    return train_step
+    return TrainGraphs(model, loss_computer, optimizer, eager_step)
 
 
 def make_eval_step(model: nn.Module, post_processor
