@@ -1,64 +1,39 @@
-"""The training step as CUDA graphs, one per batch signature.
+"""The training step as CUDA graphs, one per batch signature (the shared
+rules are ``graphs.py``'s).
 
 ``TrainGraphs(model, loss_computer, optimizer, eager)(state, batch)``
 returns what the eager step ``eager(state, batch)`` returns
-(``train_step.py``).  On the card an eager step is a few thousand launches
-(the train-mode forward, the 11 losses, autograd's backward, AdamW), which
-the host issues barely faster than the card runs them.  One captured
-``torch.cuda.CUDAGraph`` holds the whole step: a copy of the state a
-skipped step restores (the parameters, the moments, the EMA shadows and the
-buffers), the forward, the losses and their sum, the backward, the zero
-gradients of the parameters the loss does not reach and the clip
-(``Optimizer.prepare_gradients``), ``ok = isfinite(total)``, and the
-update with the EMA (``solver.DeviceUpdate``: torch's foreach AdamW with
-every value that changes from step to step read from a device tensor).  A
-later call copies the batch into the graph's inputs, writes the step's
-values, replays and reads ``ok``: the step's one host sync, after all of it
-is enqueued.  A taken step moves the host's counters
-(``DeviceUpdate.commit``); a skipped one copies the state back and moves
-none, so the JAX semantics of the eager step hold: parameters, moments,
-the EMA, the BN buffers, ``Optimizer.count`` and the schedule stay, while
-``TrainState.step`` and ``skips`` advance.  The forward, the losses and the
-backward run the eager step's kernels, so a replayed step is bit-equal to
-an eager one.
+(``train_step.py``), whose few thousand launches the host issues barely
+faster than the card runs them.  One graph holds the whole step: a copy of
+what a skip restores (parameters, moments, EMA shadows, buffers), the
+forward, the losses, the backward, ``Optimizer.prepare_gradients``,
+``ok = isfinite(total)`` and the update with the EMA
+(``solver.DeviceUpdate``: torch's foreach AdamW with every per-step value
+read from a device tensor).  A replay copies the batch in, writes the
+step's values, replays and reads ``ok``, its one host sync.  A taken step
+moves the host's counters (``DeviceUpdate.commit``); a skipped one copies
+the state back and moves none, as the eager step does.
 
-A call is graphable when the batch is on one CUDA device, the step runs in
-one process (no ``DistributedDataParallel``), no module has a hook (forward
-or backward) nor a parameter a gradient hook, and ``DeviceUpdate`` takes
-the optimizer (``solver.device_update_refusal``) and finds its moments.
-Otherwise it runs eagerly; an optimizer that ``DeviceUpdate`` refuses is
-counted in ``train_step.graph_fallbacks`` and logged once.  The signature
-is the shapes and dtypes of the batch, the DCN specs (``eval_graph.py``),
-the addresses of the parameters, buffers, moments and EMA shadows, and
-what the graph bakes in (betas, eps, weight decay, the clip): a tensor
-replaced, not written in place, recaptures, while an EMA swap or a model's
-``load_state_dict`` replays.
-
-The first call of a signature runs eagerly (cuDNN's autotune, the moments'
-allocation, the loss's device tables), and the signature is taken after it
-(the moments' addresses appear in the first step).
-The second captures on a side stream and replays; later calls replay.  A
-capture that raises (an op that waits for the card) leaves that signature
-eager, counted in ``train_step.graph_fallbacks`` and logged once.  At most
-``MAX_GRAPHS`` signatures are kept, the least recently used dropped first
-(a graph's memory pool holds one step's activations).
+A call is graphable when the batch is on one CUDA device, in one process
+(no ``DistributedDataParallel``), with no hook on a module (forward or
+backward) or parameter, and an optimizer ``DeviceUpdate`` takes
+(``solver.device_update_refusal``; a refusal counts in
+``train_step.graph_fallbacks``, logged once).  Its signature adds the
+moments' and EMA shadows' addresses and what the graph bakes in (betas,
+eps, weight decay, the clip), and is taken after the signature's first,
+eager, step, which makes the moments.  ``MAX_GRAPHS`` are kept (a graph's
+pool holds one step's activations).
 
 Spans (``utils/trace.py``): a replayed step records ``train_step.forward``
-around the whole call that issues the graph (input copies, values, replay),
-``train_step.finite_sync`` around the read of ``ok`` and, on a skip,
-``train_step.restore``; a capture is ``train_step.capture``.  The spans
-``.snapshot``, ``.loss``, ``.backward`` and ``.optimizer`` are not
-recorded, their work being inside the graph.  Counters:
-``train_step.graph_captures``, ``.graph_replays`` (the capture's own replay
-included) and ``.graph_fallbacks``; the DCN wrappers' launch counters add
-one step's launches per replay.  Returned metrics are copies: the next
-replay rewrites the graph's tensors.
+around issuing the graph (input copies, values, replay),
+``.finite_sync`` around the read of ``ok`` and, on a skip, ``.restore``; a
+capture is ``train_step.capture``.  Counters: ``train_step.graph_*``.
+Returned metrics are copies: the next replay rewrites the graph's tensors.
 """
 
 from __future__ import annotations
 
 import logging
-from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Callable, Dict, Hashable, List, Optional, Tuple
 
@@ -67,7 +42,7 @@ from torch import nn
 from torch.nn.parallel import DistributedDataParallel
 
 from ..utils import comm, trace
-from .eval_graph import _EAGER, _SEEN, _launch_counts, _set_launch_counts, _walk
+from .graphs import EAGER, SEEN, Graph, GraphCache, walk
 from .solver import DeviceUpdate, Optimizer, device_update_refusal
 
 MAX_GRAPHS = 2
@@ -97,7 +72,7 @@ def _signature(model: nn.Module, opt: Optimizer, batch: Tensors
                ) -> Optional[Tuple[Hashable, bool]]:
     """(the key, whether every module is in training mode); None where a
     module or a parameter has a hook, or a parameter has no moments yet."""
-    walked = _walk(model, backward=True)
+    walked = walk(model, backward=True)
     if walked is None:
         return None
     _, all_training, specs, ptrs = walked
@@ -128,8 +103,7 @@ def signature(model: nn.Module, optimizer: Optimizer, batch: Tensors) -> Optiona
 
 
 @dataclass
-class _Graph:
-    graph: torch.cuda.CUDAGraph
+class _Step(Graph):
     static: Tensors                        # the batch the graph reads
     update: DeviceUpdate
     state: List[List[torch.Tensor]]        # what a skip restores, by dtype
@@ -139,7 +113,6 @@ class _Graph:
     values: List[torch.Tensor]             # the graph's tensors of those
     params: List[nn.Parameter]
     grads: List[torch.Tensor]              # the graph's gradients
-    launches: Dict[Tuple[object, str], int]
 
 
 class TrainGraphs:
@@ -152,31 +125,25 @@ class TrainGraphs:
         self.loss_computer = loss_computer
         self.optimizer = optimizer
         self.eager = eager
-        self.graphs: "OrderedDict[Hashable, object]" = OrderedDict()
-        self._stream: Optional[torch.cuda.Stream] = None
+        self.cache = GraphCache("train_step", MAX_GRAPHS, logger)
         self._refused: Optional[str] = None    # the refusal logged last
-        self._warned = False
         self._all_training = False             # of the last signature's walk
 
     def __call__(self, state, batch: Tensors):
         key = self.signature(batch)
-        entry = None if key is None else self.graphs.get(key)
+        entry = self.cache.get(key)
+        if entry is SEEN:
+            with trace.span("train_step.capture"):
+                entry = self.cache.capture(key, batch["image"].device, self._prepare,
+                                           self._record, batch)
         if entry is None:
             out = self.eager(state, batch)
             # the signature the next call will have: the first step makes
             # the moments, which have none before it
-            after = self.signature(batch)
-            if after is not None and after not in self.graphs:
-                self._keep(after, _SEEN)
+            self.cache.seen(self.signature(batch))
             return out
-        self.graphs.move_to_end(key)
-        if entry is _EAGER:
+        if entry is EAGER:
             return self.eager(state, batch)
-        if entry is _SEEN:
-            with trace.span("train_step.capture"):
-                entry = self._capture(key, batch)
-            if entry is None:
-                return self.eager(state, batch)
         with trace.span("train_step.forward"):
             self._issue(entry, batch)
         return self._finish(entry, state)
@@ -189,9 +156,7 @@ class TrainGraphs:
         if refusal is not None:
             if refusal != self._refused:
                 self._refused = refusal
-                trace.add("train_step.graph_fallbacks")
-                logger.warning(f"the train step runs eagerly: its optimizer has no device "
-                               f"update ({refusal})")
+                self.cache.fall_back(None, f"its optimizer has no device update ({refusal})")
             return None
         signed = _signature(self.model, self.optimizer, batch)
         if signed is None:
@@ -199,74 +164,39 @@ class TrainGraphs:
         key, self._all_training = signed
         return key
 
-    def _keep(self, key: Hashable, entry: object) -> None:
-        self.graphs[key] = entry
-        self.graphs.move_to_end(key)
-        while len(self.graphs) > MAX_GRAPHS:
-            self.graphs.popitem(last=False)
-
-    def _fail(self, key: Hashable, error: Exception) -> None:
-        self._keep(key, _EAGER)
-        trace.add("train_step.graph_fallbacks")
-        if not self._warned:
-            self._warned = True
-            logger.warning(f"the train step runs eagerly at batch signature {key[0]}: its "
-                           f"CUDA graph capture failed ({error})")
-
-    def _capture(self, key: Hashable, batch: Tensors) -> Optional[_Graph]:
-        model, opt = self.model, self.optimizer
-        device = batch["image"].device
-        if self._stream is None or self._stream.device != device:
-            self._stream = torch.cuda.Stream(device)
-        try:
-            update = DeviceUpdate(opt)
-        except ValueError as e:
-            self._fail(key, e)
-            return None
-        state = _by_dtype(update.state() + [b for b in model.buffers()])
+    def _prepare(self, stream: torch.cuda.Stream, batch: Tensors) -> tuple:
+        """What the capture needs, made before it."""
+        update = DeviceUpdate(self.optimizer)
+        state = _by_dtype(update.state() + [b for b in self.model.buffers()])
         with torch.no_grad():
             # no autograd node may outlive this call: one made here would
             # keep the parameters' gradient accumulators on this stream
             saved = [[t.clone() for t in ts] for ts in state]
-        static = {k: t.clone() for k, t in batch.items()}
-        params = list(model.parameters())
+        params = list(self.model.parameters())
         for p in params:
             p.grad = None
-        model.train()
-        before = _launch_counts()
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(graph, stream=self._stream, capture_error_mode="thread_local"):
-                with torch.no_grad():
-                    for dst, src in zip(saved, state):
-                        torch._foreach_copy_(dst, src)
-                outputs = model(static["image"], static.get("edge_indices"),
-                                static.get("edge_len"))
-                loss_dict, log_dict = self.loss_computer(outputs, static)
-                total = sum(loss_dict[k] for k in sorted(loss_dict))
-                total.backward()
-                with torch.no_grad():
-                    opt.prepare_gradients()
-                    ok = torch.isfinite(total)
-                    update.apply()
-                del outputs, loss_dict
-        except RuntimeError as e:
-            _set_launch_counts(before)
-            for p in params:
-                p.grad = None
-            self._fail(key, e)
-            return None
-        launches = {k: n - before[k] for k, n in _launch_counts().items()}
-        _set_launch_counts(before)
-        keys = ("total_loss", *log_dict)
-        values = [total.detach(), *(v.detach() for v in log_dict.values())]
-        entry = _Graph(graph, static, update, state, saved, ok, keys, values, params,
-                       [p.grad for p in params], launches)
-        self._keep(key, entry)
-        trace.add("train_step.graph_captures")
-        return entry
+        self.model.train()
+        return {k: t.clone() for k, t in batch.items()}, update, state, saved, params
 
-    def _issue(self, entry: _Graph, batch: Tensors) -> None:
+    def _record(self, prepared: tuple) -> _Step:
+        static, update, state, saved, params = prepared
+        with torch.no_grad():
+            for dst, src in zip(saved, state):
+                torch._foreach_copy_(dst, src)
+        outputs = self.model(static["image"], static.get("edge_indices"),
+                             static.get("edge_len"))
+        loss_dict, log_dict = self.loss_computer(outputs, static)
+        total = sum(loss_dict[k] for k in sorted(loss_dict))
+        total.backward()
+        with torch.no_grad():
+            self.optimizer.prepare_gradients()
+            ok = torch.isfinite(total)
+            update.apply()
+        return _Step(static, update, state, saved, ok, ("total_loss", *log_dict),
+                     [total.detach(), *(v.detach() for v in log_dict.values())], params,
+                     [p.grad for p in params])
+
+    def _issue(self, entry: _Step, batch: Tensors) -> None:
         for k, t in entry.static.items():
             t.copy_(batch[k])
         entry.update.write()
@@ -277,13 +207,9 @@ class TrainGraphs:
             # train() sets every module's flag through nn.Module.__setattr__:
             # 1-2 ms of host time, spent only where a flag is set
             self.model.train()
-        entry.graph.replay()
-        for (f, c), n in entry.launches.items():
-            if n:
-                setattr(f, c, getattr(f, c) + n)
-        trace.add("train_step.graph_replays")
+        self.cache.replay(entry)
 
-    def _finish(self, entry: _Graph, state) -> Tuple[object, Dict[str, object]]:
+    def _finish(self, entry: _Step, state) -> Tuple[object, Dict[str, object]]:
         owned = torch.stack(entry.values).unbind() if len({v.dtype for v in entry.values}) == 1 \
             else [v.clone() for v in entry.values]
         with trace.span("train_step.finite_sync"):

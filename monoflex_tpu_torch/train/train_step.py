@@ -13,20 +13,15 @@ step, on the total loss.  ``make_eval_step`` is the evaluation path's
 forward and decode.
 
 On the card, in one process, the step replays one CUDA graph per batch
-signature (``train_graph.py``): the same kernels, the isfinite decided on
-the card and read once, after the whole step is enqueued.  The eager step
-below runs on the CPU, under data parallelism, on a signature's first call
-and wherever a capture fails.
-
-Each part of an eager step is a span of ``utils/trace.py``:
+signature (``train_graph.py`` through ``graphs.py``); the eager step below
+runs on the CPU, under data parallelism, on a signature's first call and
+wherever a capture fails.  Its spans (``utils/trace.py``) are
 ``train_step.snapshot`` (the BN buffers' copy), ``.forward``, ``.loss``,
 ``.backward``, ``.finite_sync`` (the host waits for the total),
-``.optimizer`` (all of ``Optimizer.step``) or, on a skipped step,
-``.restore``; with more than one process ``.all_reduce``.  A replayed step
-records ``.forward`` (the call that issues the graph), ``.finite_sync`` and
-``.restore`` only; its counters are ``train_step.graph_*``.  The eval
-step's spans are ``eval_step.forward`` and ``eval_step.decode``; its
-counters ``eval_step.graph_*`` (``eval_graph.py``).
+``.optimizer`` or, on a skipped step, ``.restore``; with more than one
+process ``.all_reduce``.  A replayed step's are ``train_graph.py``'s.  The
+eval step's spans are ``eval_step.forward`` and ``eval_step.decode``; its
+forward replays graphs too (``eval_graph.py``).
 
 With more than one process (``model`` wrapped by ``parallel/mesh.py``) the
 losses are the processes' shares of the global batch's (``losses/``); one

@@ -27,7 +27,7 @@ from monoflex_tpu_torch.models.detector import MonoFlex, init_parameters
 from monoflex_tpu_torch.models.heads.predictor import build_predictor
 from monoflex_tpu_torch.models.layers import set_compute_dtype
 from monoflex_tpu_torch.ops import dcn_cuda
-from monoflex_tpu_torch.train import eval_graph
+from monoflex_tpu_torch.train import eval_graph, graphs
 from monoflex_tpu_torch.train.eval_graph import GraphedForward, graphable, signature
 from monoflex_tpu_torch.train.solver import ParamEma, ema_params
 from monoflex_tpu_torch.train.train_step import make_eval_step
@@ -220,7 +220,7 @@ def test_a_cpu_model_never_captures(cpu_model):
     finally:
         trace.off()
         counters = trace.drain().counters
-    assert not forward.graphs
+    assert not forward.cache.graphs
     assert not any(c in counters for c in COUNTERS)
 
 
@@ -317,11 +317,11 @@ def test_at_most_max_graphs_are_kept(device):
         for batch in batches:
             for _ in range(2):
                 forward(*args(batch))
-        kept = [k[0][0][0][0] for k, v in forward.graphs.items()]
+        kept = [k[0][0][0][0] for k, v in forward.cache.graphs.items()]
         assert kept == [b["image"].shape[0] for b in batches[1:]]
-        assert all(isinstance(v, eval_graph._Graph) for v in forward.graphs.values())
+        assert all(isinstance(v, graphs.Graph) for v in forward.cache.graphs.values())
         out = forward(*args(batches[0]))          # dropped: eager again
-        assert not isinstance(forward.graphs[key(model, batches[0])], eval_graph._Graph)
+        assert not isinstance(forward.cache.graphs[key(model, batches[0])], graphs.Graph)
         assert torch.equal(out["cls"], model(*args(batches[0]))["cls"])
 
 

@@ -276,7 +276,7 @@ def test_a_cpu_model_never_captures():
     finally:
         trace.off()
         counters = trace.drain().counters
-    assert not step_b.graphs
+    assert not step_b.cache.graphs
     assert not any(c.startswith("train_step.graph") for c in counters)
 
 
@@ -421,7 +421,7 @@ def test_a_parameter_replaced_recaptures(device, counted):
     drive(eager, graphed, [batch_of(device, seed=i) for i in range(CALLS)], replace)
     # eager, capture; eager (a new signature), capture, replay
     assert counted() == {"train_step.graph_captures": 2, "train_step.graph_replays": 3}
-    assert len(graphed[2].graphs) == 2
+    assert len(graphed[2].cache.graphs) == 2
 
 
 @pytest.mark.cuda
@@ -454,7 +454,7 @@ def test_steps_that_stay_eager(device, counted, caplog, monkeypatch, case):
             model.backbone.register_forward_hook(lambda *a: None)
     with caplog.at_level(logging.WARNING, logger="monoflex.train_graph"):
         drive(eager, graphed, [batch_of(device, seed=i) for i in range(CALLS)])
-    assert not graphed[2].graphs
+    assert not graphed[2].cache.graphs
     want = {"train_step.graph_fallbacks": 1} if case == "sgd" else {}
     assert counted() == want
     assert sum("no device update" in r.getMessage() for r in caplog.records) == len(want)
