@@ -11,9 +11,10 @@ Phases, one line each; any failure exits non-zero and prints no result:
              each, all started together.
   3. kernel  the DCNv2 forward kernel against the plain PyTorch op at the
              neck's DCN shapes, batch 8, R=2, x in bf16: max abs error
-             against the tolerance, ms per call of each; then the same at
-             FCOS3D's six DCN shapes (MODEL.META_ARCHITECTURE "FCOSMono3D"
-             at 1600x900), batch 6.
+             against the tolerance, ms per call of each, the tile of output
+             channels (wide_launches counted where it is 256); then the same
+             at batch 1 (a stream's frame) and at FCOS3D's six DCN shapes
+             (MODEL.META_ARCHITECTURE "FCOSMono3D" at 1600x900), batch 6.
   4. slice   runs/monoflex.yaml at 384x1280, batch 8, seeded weights with the
              offset/mask convs perturbed off zero: one warm-up, then 3
              forward+decode passes that must launch the kernel 16 times each
@@ -188,6 +189,12 @@ DCN_SHAPES = [
     ((48, 160, 64, 64), 0),
     ((24, 80, 64, 64), 0),
 ]
+# dcn_fwd's launches on the wide tile (256 output channels a block,
+# ops/dcn_cuda.py::fwd_tile_n) in a forward of shapes [((H, W, C, Co), layers)]
+def wide_per_forward(shapes) -> int:
+    return sum(n for (_, _, _, Co), n in shapes if dcn_cuda.fwd_tile_n(Co) == 256)
+
+
 # (H, W, C, Co) of FCOS3D's 36 DCNs (a nuScenes sample's six 1600x900 images,
 # padded to 928) and how many run at each: stage 3's 23 and the two head
 # towers' at P4, stage 4's 3, and the towers' at P3, P5, P6 and P7
@@ -329,9 +336,10 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def dcn_work(kind: str, H: int, W: int, C: int, Co: int, x_bytes: int, bf16_math: bool = False):
+def dcn_work(kind: str, H: int, W: int, C: int, Co: int, x_bytes: int, bf16_math: bool = False,
+             batch: int = BATCH):
     """(f32 operations, bytes, bf16 tensor-core operations) one DCN kernel
-    call needs at batch BATCH: each input read once, each output written
+    call needs at ``batch``: each input read once, each output written
     once.  Operations: the 9*C*Co contraction per pixel (2 each, multiply
     and add), 8 per sampled (pixel, tap, channel) for the 4 bilinear
     corners (dx gathers the same 4 corners per source, mirrored); dwmo also
@@ -351,7 +359,7 @@ def dcn_work(kind: str, H: int, W: int, C: int, Co: int, x_bytes: int, bf16_math
     constant over a row tile, a row pass and a column pass of 2R+1
     multiply-adds per (pixel, tap, channel), with 11 (2R+1) per (pixel, tap)
     for the hat maps, the mask and the tile maximum."""
-    n = BATCH * H * W
+    n = batch * H * W
     taps = 9 * n * C
     gemm = 2 * taps * Co
     f32 = 4
@@ -433,7 +441,13 @@ def check_kernel(shapes=DCN_SHAPES, batch: int = BATCH) -> dict:
         def kernel_bf16x():
             return dcn_cuda.dcn_forward(x16, *args[1:], **kw)
 
+        wide_before = dcn_cuda.dcn_forward.wide_launches
         y = kernel()
+        tile = dcn_cuda.fwd_tile_n(Co)
+        moved = dcn_cuda.dcn_forward.wide_launches - wide_before
+        if moved != int(tile == 256):
+            raise AssertionError(f"dcn_fwd {(batch, H, W, C, Co)}: wide_launches moved by "
+                                 f"{moved} at tile {tile}")
         err = (y - plain()).abs().max().item()
         if not (err <= KERNEL_TOL and torch.isfinite(y).all()):
             raise AssertionError(f"dcn_fwd {(batch, H, W, C, Co)}: max abs err {err} > {KERNEL_TOL}")
@@ -456,9 +470,9 @@ def check_kernel(shapes=DCN_SHAPES, batch: int = BATCH) -> dict:
         plain_fwd += layers * p_ms
         f32_fwd += layers * f_ms
         bf16x_fwd += layers * b_ms
-        work = dcn_work("fwd", H, W, C, Co, x.element_size())
+        work = dcn_work("fwd", H, W, C, Co, x.element_size(), batch=batch)
         ops, nbytes, tc = ops + layers * work[0], nbytes + layers * work[1], tc + layers * work[2]
-        phase("kernel", f"dcn_fwd B,H,W,C,Co={(batch, H, W, C, Co)} layers={layers} "
+        phase("kernel", f"dcn_fwd B,H,W,C,Co={(batch, H, W, C, Co)} layers={layers} tile={tile} "
                         f"max_abs_err={err:.3e} (tol {KERNEL_TOL}) kernel_ms={k_ms:.4f} "
                         f"plain_ms={p_ms:.4f} kernel_f32x_ms={f_ms:.4f} "
                         f"kernel_bf16x_ms={b_ms:.4f}")
@@ -471,7 +485,8 @@ def check_kernel(shapes=DCN_SHAPES, batch: int = BATCH) -> dict:
                     f"as a bf16 model gives it) "
                     f"bound_ms={bound_ms:.4f} ({bound_by}: {tc / 1e9:.1f} GFLOP on the tensor "
                     f"cores ({TC_PASSES['fwd']} bf16 passes), {ops / 1e9:.1f} f32 GFLOP, "
-                    f"{nbytes / 1e9:.3f} GB); every layer's folded cast bit-equal to cast-then-kernel")
+                    f"{nbytes / 1e9:.3f} GB); every layer's folded cast bit-equal to "
+                    f"cast-then-kernel; wide_launches per forward {wide_per_forward(shapes)}")
     return {"max_abs_err": worst, "ms": ms_fwd, "plain_ms": plain_fwd, "bound_ms": bound_ms,
             "bound_by": bound_by}
 
@@ -526,7 +541,7 @@ def run_slice() -> dict:
     with torch.inference_mode():
         infer(model)
         torch.cuda.synchronize()
-        dcn_cuda.dcn_forward.launches = 0
+        dcn_cuda.dcn_forward.launches = dcn_cuda.dcn_forward.wide_launches = 0
         passes = 3
         t0 = time.perf_counter()
         for _ in range(passes):
@@ -534,9 +549,13 @@ def run_slice() -> dict:
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
         launches = dcn_cuda.dcn_forward.launches
+        wide = dcn_cuda.dcn_forward.wide_launches
 
         if launches != 16 * passes:
             raise AssertionError(f"{launches} dcn_fwd launches in {passes} forwards, want {16 * passes}")
+        if wide != wide_per_forward(DCN_SHAPES) * passes:
+            raise AssertionError(f"{wide} dcn_fwd wide_launches in {passes} forwards, want "
+                                 f"{wide_per_forward(DCN_SHAPES) * passes}")
         if tuple(rows.shape) != (BATCH, 50, 14) or not torch.isfinite(rows).all():
             raise AssertionError(f"rows {tuple(rows.shape)} finite={bool(torch.isfinite(rows).all())}")
         for key, t in [("cls", out["cls"])] + [(f"reg{i}", r) for i, r in enumerate(out["reg"])]:
@@ -544,7 +563,8 @@ def run_slice() -> dict:
                 raise AssertionError(f"head map {key} is not finite")
         phase("slice", f"{passes} forward+decode passes at batch {BATCH}, 384x1280: "
                        f"{BATCH * passes / elapsed:.2f} img/s on {torch.cuda.get_device_name(0)}; "
-                       f"dcn_fwd launches={launches}; rows {tuple(rows.shape)} finite, "
+                       f"dcn_fwd launches={launches} wide_launches={wide}; "
+                       f"rows {tuple(rows.shape)} finite, "
                        f"{int(valid.sum())} above threshold")
 
         stats, handles = offset_stats(model)
@@ -967,7 +987,7 @@ def run_eval() -> dict:
             eval_step = make_eval_step(model, PostProcessor(cfg))
             out_dir = os.path.join(cfg.OUTPUT_DIR, "inference")
             for f in counters:
-                f.launches = 0
+                f.launches = f.wide_launches = 0
             t0 = time.perf_counter()
             aps[label] = inference(cfg, eval_step, dataset, out_dir, metrics=("R40",))
             torch.cuda.synchronize()
@@ -978,6 +998,9 @@ def run_eval() -> dict:
             if launches[label] != want:
                 raise AssertionError(f"({label}) launches {launches[label]} in {forwards} "
                                      f"forwards, want {want}")
+            wide = sum(f.wide_launches for f in counters)
+            if wide != wide_per_forward(DCN_SHAPES) * forwards:
+                raise AssertionError(f"({label}) {wide} wide_launches in {forwards} forwards")
             check_ap(label, aps[label], os.path.join(out_dir, "data"))
             heads[label] = head_maps(model, probe)
             del model
@@ -996,7 +1019,8 @@ def run_eval() -> dict:
                           f"{1 / aps[label]['s_per_img']:.2f} img/s for the eval step with its "
                           f"host transfers; launches per forward "
                           + " ".join(f"{k}={v // forwards}" for k, v in launches[label].items())
-                          + f"; 16 txts, {len(AP_KEYS)} finite R40 APs "
+                          + f" (wide_launches={wide // forwards}); 16 txts, "
+                          f"{len(AP_KEYS)} finite R40 APs "
                           f"(Car_3d_0.70/moderate {aps[label]['Car_3d_0.70/moderate']:.4f}); "
                           f"head maps vs plain op {err:.3e}")
 
@@ -2234,8 +2258,9 @@ def main() -> None:
     for name, info in build_report().items():
         phase("build", f"{name}: {info}")
 
-    with watchdog("kernel", 360):
+    with watchdog("kernel", 420):
         fwd = check_kernel()
+        check_kernel(DCN_SHAPES, 1)
         check_kernel(FCOS3D_DCN_SHAPES, FCOS3D_BATCH)
     with watchdog("slice", 240):
         slice_launches = run_slice()["launches"]

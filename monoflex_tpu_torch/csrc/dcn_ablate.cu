@@ -44,21 +44,21 @@
 //    pixel's 4 corner offsets and weights and gathers each corner's 8
 //    channels in 16-byte vectors.  The taps are summed in f32 registers and
 //    stored once: no split and no products.
-//  - matmul, nomap, nobcast: dcn_fwd's own stage pipeline
-//    (fwd_stages.cuh::run_stages: two stages of A and W, W by bulk copy from
-//    dcn_fwd's layout, which dcn_fwd's layout kernel writes first; six
-//    wgmma passes a stage into a fresh accumulator, added into the f32
-//    sums; warpgroups 0 and 1 multiply while, at BN = 64, 2 and 3 produce
-//    the next stage), with only the A-tile producer changed:
-//      matmul (gemm_matmul_kernel): dcn_fwd's block (128 consecutive
-//        pixels x BN, BN and threads as dcn_fwd's), stage order and
-//        producer, with one aligned term a tap, m_k x[p + k], in place of
-//        the 4 bilinear corners;
+//  - matmul, nomap, nobcast: dcn_fwd's own pipeline (fwd_stages.cuh::
+//    run_ring: a warp-specialised ring of 32-channel stages of A and W, W
+//    by bulk copy from dcn_fwd's layout, which dcn_fwd's layout kernel
+//    writes first; warpgroups 2 and 3 produce the A tiles, 0 and 1 issue
+//    six wgmma passes a stage into a fresh accumulator, added into the f32
+//    sums), with only the A-tile producer changed:
+//      matmul (gemm_matmul_kernel): dcn_fwd's block (its consecutive pixels
+//        x BN, BN and threads as dcn_fwd's, the wide tile included), stage
+//        order and producer, with one aligned term a tap, m_k x[p + k], in
+//        place of the 4 bilinear corners, loaded when the stage is made;
 //      nomap, nobcast (gemm_window_kernel): an 8 x 16 tile of pixels at
-//        BN = 64 (dcn_fwd's BN = 128 stages leave no room for a halo), stages
+//        BN = 64 (dcn_fwd's wider rings leave no room for a halo), stages
 //        ordered (channel slice, tap), each slice's halo of x (P = R + 1,
-//        f32, zero off the map) staged in shared memory by its first stage
-//        (64 channels, or 32 or 16 where the halo does not fit).  Both
+//        f32, zero off the map) staged in shared memory by the producers at
+//        its first stage (32 channels, or 16 where the halo does not fit).  Both
 //        windows are separable: a thread takes 2 output rows x 2 columns of
 //        a channel group and forms each row sum sum_f wx(k,f) x they read
 //        once, from a register window sliding along the row, adding it
@@ -76,14 +76,13 @@
 // L2).  matmul, nomap and nobcast do dcn_fwd's 2*9*C*Co products a pixel at
 // six bf16 passes on the tensor cores, beside their f32 window sums (nomap's
 // box counted once, as its least work; the kernel forms it per tap).  What
-// holds them back: at Co = 64 the products' own shared-memory reads (4 KB
-// of A and W per m64n64k16 pass) and the window's (a halo pixel read once
-// per 2 output columns), so the shared memory's bandwidth, not the tensor
-// cores, sets the pace; the A tile is built for each BN-channel tile of Co,
-// as in dcn_fwd.
+// holds them back: what holds dcn_fwd's ring back (dcn_fwd.cu), and for
+// nomap and nobcast at Co = 64 the window's shared-memory reads too (a halo
+// pixel read once per 2 output columns); the A tile is built for each
+// BN-channel tile of Co, as in dcn_fwd.
 //
 // Layouts: x (B,H,W,C), offset (B,H,W,18) interleaved (dy_k, dx_k), mask
-// (B,H,W,9), weight (9,C,Co), w_img (9, ceil(C/64), ceil(Co/BN), 3, BN, 64)
+// (B,H,W,9), weight (9,C,Co), w_img (9, ceil(C/32), ceil(Co/BN), 3, BN, 32)
 // bf16 scratch, out (B,H,W,C or Co), tilemax (B * ntiles * 9, 2, 2R+1)
 // scratch (wy maxima, then wx maxima); f32 unless stated, all contiguous.
 
@@ -99,11 +98,11 @@ enum Variant : int { kDma = 0, kWindow = 1, kAligned = 2, kMatmul = 3, kNomap = 
 constexpr int kSmemLimit = 232448;  // a block's dynamic shared memory on sm_90
 constexpr int RMAX = 7;             // the TPU tools' limit: P = R + 1 <= their 8 guard rows
 constexpr int MAXW = 2 * RMAX + 1;  // window terms per axis
-constexpr int BK = 64;              // channels per chunk (one swizzled row of A)
+constexpr int BK = 64;              // channels of a sum_kernel block
 constexpr int PARTS = 3;            // bf16 parts of each operand, as dcn_fwd (hi, mid, lo)
-static_assert(BK == kImageChunk && PARTS == kImageParts, "W's layout (fwd_stages.cuh)");
-constexpr int BM = kStageRows;      // pixels a block owns (128)
-constexpr int A_BYTES = kStageA;    // one part of A
+static_assert(PARTS == kImageParts, "W's layout (fwd_stages.cuh)");
+constexpr int BM = 128;             // pixels a sum_kernel or window block owns
+constexpr int A_BYTES = FwdTile<64>::kA;  // one part of a window block's A
 // sum_kernel
 constexpr int THREADS = 512;        // 8 threads a pixel
 // gemm_window_kernel's pixel tile
@@ -330,7 +329,7 @@ sum_kernel(const float* __restrict__ x, const float* __restrict__ offset, float*
 // --------------------------------------------- matmul, nomap, nobcast ----
 
 // 4 f32 values -> three bf16 parts (as sm90::split8x3) into A's row `row`
-// at columns col .. + 3
+// at columns col .. + 3 (of a stage's 32)
 __device__ __forceinline__ void put4(uint8_t* a, int row, int col, const float4& v) {
   const float x[4] = {v.x, v.y, v.z, v.w};
   uint32_t part[PARTS][2];
@@ -346,7 +345,7 @@ __device__ __forceinline__ void put4(uint8_t* a, int row, int col, const float4&
     part[1][i] = *reinterpret_cast<const uint32_t*>(&mb);
     part[2][i] = *reinterpret_cast<const uint32_t*>(&lb);
   }
-  const int off = sm90::swz(row, col >> 3) + 2 * (col & 7);
+  const int off = sm90::swz64(row, col >> 3) + 2 * (col & 7);
 #pragma unroll
   for (int p = 0; p < PARTS; ++p)
     *reinterpret_cast<uint2*>(a + p * A_BYTES + off) = make_uint2(part[p][0], part[p][1]);
@@ -448,50 +447,36 @@ __device__ __forceinline__ void window_tile(uint8_t* a, const float* s_halo, int
 }
 
 // matmul: dcn_fwd with its sampling producer reduced to one aligned term a
-// tap.  The same block (128 consecutive pixels x BN output channels,
-// FwdStages<BN>::kThreads threads), stage order (tap, channel chunk) and
-// stage pipeline (fwd_stages.cuh); the block's masks staged once; per stage
-// eight threads a pixel load their 8-channel group of the run at p + (ky,
-// kx) in 16-byte vectors, scale it by the mask and write its three bf16
-// parts into A
+// tap.  The same block (dcn_fwd's rows x BN output channels and threads),
+// stage order (tap, 32-channel chunk) and ring (fwd_stages.cuh); per stage
+// four producer threads a pixel load their 8-channel group of the run at
+// p + (ky, kx) in 16-byte vectors, scale it by the mask and write its three
+// bf16 parts into A
 template <int BN>
-struct MatmulSmem {
-  static constexpr int kMask = FwdStages<BN>::kBytes;  // after the two stages
-  static constexpr int kBar = kMask + BM * 9 * 4;
-  static constexpr int kBytes = kBar + 2 * 8 + 1024;
-};
-
-template <int BN>
-__global__ void __launch_bounds__(FwdStages<BN>::kThreads, 1)
+__global__ void __launch_bounds__(kRingThreads, 1)
 gemm_matmul_kernel(const float* __restrict__ x, const float* __restrict__ mask,
                    const __nv_bfloat16* __restrict__ w_img, float* __restrict__ out, int B, int H,
                    int W, int C, int Co) {
-  using S = MatmulSmem<BN>;
-  constexpr int kThreads = FwdStages<BN>::kThreads;
+  constexpr int kRows = FwdTile<BN>::kRows;
+  constexpr int kA = FwdTile<BN>::kA;
+  constexpr int kRowsPerPass = kProducers / 4;
   extern __shared__ uint8_t smem_raw[];
   // aligned to 1024 bytes by an offset from smem_raw, as dcn_bwd_dx.cu
   uint8_t* smem = smem_raw + ((1024u - (sm90::smem_u32(smem_raw) & 1023u)) & 1023u);
-  float* s_mask = reinterpret_cast<float*>(smem + S::kMask);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::kBar);
-  const int tid = threadIdx.x;
   const int npix = B * H * W;
-  const int p0 = blockIdx.x * BM;
+  const int p0 = blockIdx.x * kRows;
   const int nt = blockIdx.y;
-  const int n_cc = (C + BK - 1) / BK;
+  const int n_cc = (C + kImageChunk - 1) / kImageChunk;  // 32-channel stages a tap
   const int n_nt = gridDim.y;
-  const int nrows = min(BM, npix - p0);
-  for (int e = tid; e < nrows * 9; e += kThreads) s_mask[e] = mask[p0 * 9 + e];
-
-  constexpr int kRowsPerPass = kThreads / 8;
-  const int j = tid & 7;
   const bool vec = (C % 8 == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
   auto w_of = [&](int s) { return StageW{static_cast<long long>(s) * n_nt + nt, 0}; };
-  auto produce = [&](int s, uint8_t* a) {
+  auto produce = [&](int s, uint8_t* a, int ptid) {
+    const int j = ptid & 3;
     const int k = s / n_cc;
-    const int c = (s % n_cc) * BK + 8 * j;
+    const int c = (s % n_cc) * kImageChunk + 8 * j;
 #pragma unroll
-    for (int pass = 0; pass < BM / kRowsPerPass; ++pass) {
-      const int row = (tid >> 3) + kRowsPerPass * pass;
+    for (int pass = 0; pass < kRows / kRowsPerPass; ++pass) {
+      const int row = (ptid >> 2) + kRowsPerPass * pass;
       const int pix = p0 + row;
       float v[8];
 #pragma unroll
@@ -500,7 +485,7 @@ gemm_matmul_kernel(const float* __restrict__ x, const float* __restrict__ mask,
         const int yy = (pix / W) % H + k / 3 - 1;
         const int xx = pix % W + k % 3 - 1;
         if (yy >= 0 && yy < H && xx >= 0 && xx < W) {
-          const float m = s_mask[row * 9 + k];
+          const float m = __ldg(mask + static_cast<long long>(pix) * 9 + k);
           const float* src = x + (static_cast<long long>(pix / (W * H) * H + yy) * W + xx) * C + c;
           if (vec && c + 8 <= C) {
             const float4 p = __ldg(reinterpret_cast<const float4*>(src));
@@ -518,57 +503,56 @@ gemm_matmul_kernel(const float* __restrict__ x, const float* __restrict__ mask,
       sm90::split8x3(v, parts[0], parts[1], parts[2]);
 #pragma unroll
       for (int p = 0; p < PARTS; ++p)
-        *reinterpret_cast<uint4*>(a + p * A_BYTES + sm90::swz(row, j)) = parts[p];
+        *reinterpret_cast<uint4*>(a + p * kA + sm90::swz64(row, j)) = parts[p];
     }
   };
-  float acc[BN / 2];
-  run_stages<BN, PARTS, BK / 16>(smem, full, w_img, 9 * n_cc, w_of, produce, acc);
-  if (tid >= 256) return;  // the producing-only warpgroups hold no sums
-  auto out_row = [&](int r) { return p0 + r < npix ? static_cast<long long>(p0 + r) * Co : -1ll; };
-  store_rows<BN>(acc, out_row, out, Co, nt, nullptr, nullptr, nullptr);
+  auto finish = [&](const float (&acc)[FwdTile<BN>::kN / 2]) {
+    auto out_row = [&](int r) {
+      return p0 + r < npix ? static_cast<long long>(p0 + r) * Co : -1ll;
+    };
+    store_tile<BN>(acc, out_row, out, Co, nt * BN, nullptr, nullptr, nullptr);
+  };
+  run_ring<BN, PARTS, kImageChunk / 16>(smem, w_img, 9 * n_cc, w_of, produce, finish);
 }
 
-// nomap, nobcast: the shared-memory layout beside the pipeline's two stages
-// (BN = 64) for halo channels hc and reach R: x's halo (nh pixels x hc), the
-// window weights, the two W mbarriers, 1024 bytes of alignment
+// nomap, nobcast: the shared-memory layout after dcn_fwd's ring at BN = 64
+// for halo channels hc and reach R: x's halo (nh pixels x hc), the window
+// weights, 1024 bytes of alignment
 struct WindowLayout {
   int P, hw, nh;  // halo margin, width, pixels
-  int halo, wts, bar, bytes;
+  int halo, wts, bytes;
   __host__ __device__ WindowLayout(int hc, int R) {
     P = R + 1;
     hw = TW + 2 * P;
     nh = (TH + 2 * P) * hw;
-    halo = FwdStages<64>::kBytes;
+    halo = FwdRing<64>::kBytes;
     wts = halo + nh * hc * 4;
-    bar = wts + 9 * 2 * MAXW * 4;
-    bytes = bar + 2 * 8 + 1024;
+    bytes = wts + 9 * 2 * MAXW * 4 + 1024;
   }
 };
 
-// nomap, nobcast: dcn_fwd's stage pipeline at BN = 64 (512 threads, two
-// stages; its BN = 128 stages leave no room for a halo) on an 8 x 16 tile
-// of pixels, stage s = (chunk, half, tap) taking HC channels (kSteps k-steps
-// of the chunk's W) of tap s % 9.  The first stage of each channel slice
-// stages x's halo for it (cp.async, zero off the map and past C); each
-// stage's A tile is window_tile's row and column passes over the halo, with
-// nobcast's tile-maximum weights or nomap's constant 0.5 (nomap's box is
-// the same window at weight 0.5 a row and a column)
+// nomap, nobcast: dcn_fwd's ring at BN = 64 on an 8 x 16 tile of pixels,
+// stage s = (32-channel chunk, half, tap) taking HC channels (kSteps
+// k-steps of the chunk's W) of tap s % 9.  The first
+// stage of each channel slice stages x's halo for it (cp.async, zero off
+// the map and past C) between two barriers of the producers; each stage's A
+// tile is window_tile's row and column passes over the halo, with nobcast's
+// tile-maximum weights or nomap's constant 0.5 (nomap's box is the same
+// window at weight 0.5 a row and a column)
 template <int HC>
-__global__ void __launch_bounds__(FwdStages<64>::kThreads, 1)
+__global__ void __launch_bounds__(kRingThreads, 1)
 gemm_window_kernel(const float* __restrict__ x, const float* __restrict__ tilemax,
                    const __nv_bfloat16* __restrict__ w_img, float* __restrict__ out, int H, int W,
                    int C, int Co, int R, int tile_h, int ntiles) {
   constexpr int BN = 64;
-  constexpr int kThreads = FwdStages<BN>::kThreads;
-  constexpr int kHalves = BK / HC;  // stages per (chunk, tap)
-  constexpr int kSteps = HC / 16;   // wgmma k-steps per stage
-  constexpr int kG = HC / 4;        // float4 groups of a halo pixel
+  constexpr int kHalves = kImageChunk / HC;  // stages per (chunk, tap)
+  constexpr int kSteps = HC / 16;            // wgmma k-steps per stage
+  constexpr int kG = HC / 4;                 // float4 groups of a halo pixel
   const WindowLayout L(HC, R);
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024u - (sm90::smem_u32(smem_raw) & 1023u)) & 1023u);
   float* s_halo = reinterpret_cast<float*>(smem + L.halo);
   float* s_wts = reinterpret_cast<float*>(smem + L.wts);  // (9, 2, n): wy then wx
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bar);
 
   const int tid = threadIdx.x;
   const int P = L.P, hw = L.hw, nh = L.nh;
@@ -580,11 +564,11 @@ gemm_window_kernel(const float* __restrict__ x, const float* __restrict__ tilema
   const int b = blockIdx.x / (tiles_x * tiles_y);
   const int nt = blockIdx.y;
   const int n_nt = gridDim.y;
-  const int n_cc = (C + BK - 1) / BK;
+  const int n_cc = (C + kImageChunk - 1) / kImageChunk;  // W's 32-channel chunks
 
   // the window weights of each tap, wy(k, e) then wx(k, f): nobcast's maxima
   // over the row tile that holds the block's rows, or nomap's 0.5
-  for (int u = tid; u < 9 * 2 * n; u += kThreads)
+  for (int u = tid; u < 9 * 2 * n; u += kRingThreads)
     s_wts[u] = tilemax ? tilemax[(b * ntiles + y0 / tile_h) * 9 * 2 * n + u] : 0.5f;
 
   const bool xvec = (C % 4 == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
@@ -593,14 +577,15 @@ gemm_window_kernel(const float* __restrict__ x, const float* __restrict__ tilema
     return StageW{(static_cast<long long>(s % 9) * n_cc + cc) * n_nt + nt,
                   (s / 9) % kHalves * kSteps};
   };
-  auto produce = [&](int s, uint8_t* a) {
+  auto produce = [&](int s, uint8_t* a, int ptid) {
     const int k = s % 9;
     const int slice = s / 9;
     if (k == 0) {
-      // a new channel slice: its halo (the last reader of the old one, the
-      // previous stage's producer, finished before the last barrier)
-      const int c0 = slice / kHalves * BK + slice % kHalves * HC;
-      for (int u = tid; u < nh * kG; u += kThreads) {
+      // a new channel slice: its halo, once every producer is done with the
+      // old one
+      sm90::named_sync<kProducerBarrier, kProducers>();
+      const int c0 = slice * HC;
+      for (int u = ptid; u < nh * kG; u += kProducers) {
         const int hp = u / kG;
         const int c = c0 + 4 * (u % kG);
         const int hy = y0 - P + hp / hw;
@@ -620,20 +605,20 @@ gemm_window_kernel(const float* __restrict__ x, const float* __restrict__ tilema
         }
       }
       cp_async_wait_all();
-      __syncthreads();
+      sm90::named_sync<kProducerBarrier, kProducers>();
     }
     window_tile<HC, 2, 2>(a, s_halo, hw, s_wts + k * 2 * n, n, R, k / 3 - 1, k % 3 - 1,
-                          slice % kHalves * HC, tid, (TH / 2) * (TW / 2) * kG, kThreads);
+                          slice % kHalves * HC, ptid, (TH / 2) * (TW / 2) * kG, kProducers);
   };
-  float acc[BN / 2];
-  run_stages<BN, PARTS, kSteps>(smem, full, w_img, n_cc * kHalves * 9, w_of, produce, acc);
-  if (tid >= 256) return;
   // A's row r is tile pixel (r / TW, r % TW)
-  auto out_row = [&](int r) {
-    const int y = y0 + r / TW, xx = x0 + r % TW;
-    return y < H && xx < W ? (static_cast<long long>(b * H + y) * W + xx) * Co : -1ll;
+  auto finish = [&](const float (&acc)[BN / 2]) {
+    auto out_row = [&](int r) {
+      const int y = y0 + r / TW, xx = x0 + r % TW;
+      return y < H && xx < W ? (static_cast<long long>(b * H + y) * W + xx) * Co : -1ll;
+    };
+    store_tile<BN>(acc, out_row, out, Co, nt * BN, nullptr, nullptr, nullptr);
   };
-  store_rows<BN>(acc, out_row, out, Co, nt, nullptr, nullptr, nullptr);
+  run_ring<BN, PARTS, kSteps>(smem, w_img, n_cc * kHalves * 9, w_of, produce, finish);
 }
 
 // nobcast's tile maxima: one block per (batch, row tile, tap) reduces the
@@ -721,10 +706,10 @@ int launch_on(Kernel kernel, dim3 grid, int threads, int bytes, cudaStream_t s, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// x's halo channels a nomap or nobcast block stages at once: the largest of
-// 64, 32 and 16 whose layout fits, else 0
+// x's halo channels a nomap or nobcast block stages at once: the larger of
+// 32 and 16 whose layout fits, else 0
 int halo_channels(int R) {
-  for (int hc = 64; hc >= 16; hc /= 2)
+  for (int hc = 32; hc >= 16; hc /= 2)
     if (WindowLayout(hc, R).bytes <= kSmemLimit) return hc;
   return 0;
 }
@@ -733,11 +718,8 @@ int launch_window(const float* x, const float* tm, const __nv_bfloat16* wi, floa
                   int W, int C, int Co, int R, int tile_h, int ntiles, cudaStream_t s) {
   const int hc = halo_channels(R);
   const dim3 grid(B * ((H + TH - 1) / TH) * ((W + TW - 1) / TW), (Co + 63) / 64);
-  const int threads = FwdStages<64>::kThreads;
+  const int threads = kRingThreads;
   const int bytes = WindowLayout(hc, R).bytes;
-  if (hc == 64)
-    return launch_on(gemm_window_kernel<64>, grid, threads, bytes, s, x, tm, wi, y, H, W, C, Co, R,
-                     tile_h, ntiles);
   if (hc == 32)
     return launch_on(gemm_window_kernel<32>, grid, threads, bytes, s, x, tm, wi, y, H, W, C, Co, R,
                      tile_h, ntiles);
@@ -752,9 +734,9 @@ int launch_window(const float* x, const float* tm, const __nv_bfloat16* wi, floa
 // Launches the variant on `stream` and returns the CUDA error (0 on success).
 // The caller checks shapes, devices and contiguity, that every index fits in
 // 32 bits and that 0 <= R <= 7; for matmul, nomap and nobcast it gives
-// w_img (scratch of 9 * ceil(C/64) * ceil(Co/bn) * parts * bn * 64 bf16,
-// ops/dcn_cuda.py::fwd_image_numel, parts this build's PARTS, bn 64 or 128 as
-// ops/dcn_cuda.py::fwd_tile_n for matmul, 64 for nomap and nobcast), which
+// w_img (scratch of 9 * ceil(C/32) * ceil(Co/bn) * parts * bn * 32 bf16,
+// ops/dcn_cuda.py::fwd_image_numel, parts this build's PARTS, bn 64, 128 or
+// 256 as ops/dcn_cuda.py::fwd_tile_n for matmul, 64 for nomap and nobcast), which
 // this lays W out into first, and for
 // nobcast tilemax as (B * ntiles * 9, 2, 2R + 1) with ntiles =
 // ceil(H / tile_h), tile_h a multiple of 8.
@@ -798,22 +780,25 @@ extern "C" int dcn_ablate(int variant, const void* x, const void* offset, const 
   if (variant != kMatmul && variant != kNomap && variant != kNobcast)
     return static_cast<int>(cudaErrorInvalidValue);
   // matmul takes dcn_fwd's tile of output channels, nomap and nobcast 64
-  if (parts != PARTS || (bn != 64 && bn != 128) || (variant != kMatmul && bn != 64) ||
+  if (parts != PARTS || (bn != 64 && bn != 128 && bn != 256) || (variant != kMatmul && bn != 64) ||
       (variant == kNobcast && tile_h % TH != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   auto* wi = static_cast<__nv_bfloat16*>(w_img);
-  const int groups = 9 * ((C + BK - 1) / BK) * ((Co + bn - 1) / bn) * bn * 8;
+  const int groups = 9 * ((C + kImageChunk - 1) / kImageChunk) * ((Co + bn - 1) / bn) * bn * 4;
   fwd_weight_image_kernel<<<(groups + 255) / 256, 256, 0, s>>>(static_cast<const float*>(weight),
                                                               wi, C, Co, bn, 0);
   int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   if (variant == kMatmul) {
-    const dim3 grid((npix + BM - 1) / BM, (Co + bn - 1) / bn);
+    auto grid = [&](int rows) { return dim3((npix + rows - 1) / rows, (Co + bn - 1) / bn); };
     if (bn == 64)
-      return launch_on(gemm_matmul_kernel<64>, grid, FwdStages<64>::kThreads,
-                       MatmulSmem<64>::kBytes, s, xf, m, wi, y, B, H, W, C, Co);
-    return launch_on(gemm_matmul_kernel<128>, grid, FwdStages<128>::kThreads,
-                     MatmulSmem<128>::kBytes, s, xf, m, wi, y, B, H, W, C, Co);
+      return launch_on(gemm_matmul_kernel<64>, grid(FwdTile<64>::kRows), kRingThreads,
+                       FwdRing<64>::kBytes + 1024, s, xf, m, wi, y, B, H, W, C, Co);
+    if (bn == 128)
+      return launch_on(gemm_matmul_kernel<128>, grid(FwdTile<128>::kRows), kRingThreads,
+                       FwdRing<128>::kBytes + 1024, s, xf, m, wi, y, B, H, W, C, Co);
+    return launch_on(gemm_matmul_kernel<256>, grid(FwdTile<256>::kRows), kRingThreads,
+                     FwdRing<256>::kBytes + 1024, s, xf, m, wi, y, B, H, W, C, Co);
   }
   float* tm = nullptr;
   if (variant == kNobcast) {

@@ -15,6 +15,11 @@
 // (SBO), the next 64 columns one chunk (R * 128 bytes) on (LBO), and the k-th
 // 16-deep slice starts 2048 k bytes in.
 //
+// The 64-byte mode (dcn_fwd's stages: chunks of 32 bf16 columns, 64 bytes a
+// row) is the same with 4 groups a row: group j of row r at ((j ^ ((r / 2) %
+// 4)) * 16), the Swizzle<2,4,3> pattern; 8-row groups lie 512 bytes apart
+// (SBO) and the k-th 16-wide slice of a K-major chunk starts 32 k bytes in.
+//
 // The split.  v = hi + lo with hi = bf16(v) and lo = bf16(v - hi), both
 // rounded to nearest: hi + lo keeps about 16 significant bits of v (the rest
 // is below 2^-17 |v|).  A product a b is taken as a_hi b_hi + a_hi b_lo +
@@ -40,15 +45,22 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 // byte offset of (row r, 16-byte group j) inside a swizzled chunk
 __device__ __forceinline__ int swz(int r, int j) { return r * kRowBytes + ((j ^ (r & 7)) << 4); }
 
-// wgmma shared-memory descriptor, 128-byte swizzle
+// byte offset of (row r, 16-byte group j) inside a 64-byte swizzled chunk
+__device__ __forceinline__ int swz64(int r, int j) { return r * 64 + ((j ^ ((r >> 1) & 3)) << 4); }
+
+// wgmma shared-memory descriptor, 128-byte swizzle (mode 1) or, with
+// kMode 2, 64-byte swizzle
+template <int kMode = 1>
 __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo_bytes, uint32_t sbo_bytes) {
   uint64_t d = 0;
   d |= static_cast<uint64_t>((addr & 0x3FFFF) >> 4);
   d |= static_cast<uint64_t>((lbo_bytes >> 4) & 0x3FFF) << 16;
   d |= static_cast<uint64_t>((sbo_bytes >> 4) & 0x3FFF) << 32;
-  d |= static_cast<uint64_t>(1) << 62;
+  d |= static_cast<uint64_t>(kMode) << 62;
   return d;
 }
+// K-major, 64-byte swizzle: 8-row groups 512 bytes apart
+__device__ __forceinline__ uint64_t desc64(uint32_t addr) { return desc<2>(addr, 16, 512); }
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -84,6 +96,30 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t by
                "r"(bytes)
                : "memory");
 }
+// one arrival on the barrier (release: the caller's shared-memory writes
+// before it are seen by a thread whose wait sees the phase complete)
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// the warpgroup's registers a thread to kRegs (a multiple of 8 in 24..256);
+// every thread of the warpgroup executes it
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
+// a barrier of kThreads threads (whole warps) under the named barrier kId
+// (0 is __syncthreads')
+template <int kId, int kThreads>
+__device__ __forceinline__ void named_sync() {
+  asm volatile("bar.sync %0, %1;\n" ::"n"(kId), "n"(kThreads) : "memory");
+}
+
 // wait until the phase of parity `parity` has completed; traps (a launch
 // error the host sees) instead of hanging if it never does.  Every lane of
 // the calling warp must call it: the lanes leave the poll at different
@@ -163,7 +199,8 @@ __device__ __forceinline__ void split8(const float* v, uint4& hi, uint4& lo) {
 
 // D(64x64 f32, registers) += A(64x16) B(16x64), A and B bf16 in shared memory
 template <int kTransA, int kTransB>
-__device__ __forceinline__ void wgmma_m64n64(float* d, uint64_t desc_a, uint64_t desc_b) {
+__device__ __forceinline__ void wgmma_m64n64(float* d, uint64_t desc_a, uint64_t desc_b,
+                                             int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -179,12 +216,13 @@ __device__ __forceinline__ void wgmma_m64n64(float* d, uint64_t desc_a, uint64_t
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(kTransA), "n"(kTransB));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransA), "n"(kTransB));
 }
 
 // D(64x128 f32, registers) += A(64x16) B(16x128), A and B bf16 in shared memory
 template <int kTransA, int kTransB>
-__device__ __forceinline__ void wgmma_m64n128(float* d, uint64_t desc_a, uint64_t desc_b) {
+__device__ __forceinline__ void wgmma_m64n128(float* d, uint64_t desc_a, uint64_t desc_b,
+                                             int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -209,12 +247,13 @@ __device__ __forceinline__ void wgmma_m64n128(float* d, uint64_t desc_a, uint64_
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(kTransA), "n"(kTransB));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransA), "n"(kTransB));
 }
 
 // D(64x256 f32, registers) += A(64x16) B(16x256), A and B bf16 in shared memory
 template <int kTransA, int kTransB>
-__device__ __forceinline__ void wgmma_m64n256(float* d, uint64_t desc_a, uint64_t desc_b) {
+__device__ __forceinline__ void wgmma_m64n256(float* d, uint64_t desc_a, uint64_t desc_b,
+                                             int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
@@ -258,15 +297,17 @@ __device__ __forceinline__ void wgmma_m64n256(float* d, uint64_t desc_a, uint64_
         "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
         "+f"(d[126]), "+f"(d[127])
-      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(kTransA), "n"(kTransB));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransA), "n"(kTransB));
 }
 
+// D += A B, or with scale_d 0 D = A B (D's old values are not read)
 template <int kN, int kTransA, int kTransB>
-__device__ __forceinline__ void wgmma(float* d, uint64_t desc_a, uint64_t desc_b) {
+__device__ __forceinline__ void wgmma(float* d, uint64_t desc_a, uint64_t desc_b,
+                                      int scale_d = 1) {
   static_assert(kN == 64 || kN == 128 || kN == 256, "wgmma width");
-  if constexpr (kN == 64) wgmma_m64n64<kTransA, kTransB>(d, desc_a, desc_b);
-  else if constexpr (kN == 128) wgmma_m64n128<kTransA, kTransB>(d, desc_a, desc_b);
-  else wgmma_m64n256<kTransA, kTransB>(d, desc_a, desc_b);
+  if constexpr (kN == 64) wgmma_m64n64<kTransA, kTransB>(d, desc_a, desc_b, scale_d);
+  else if constexpr (kN == 128) wgmma_m64n128<kTransA, kTransB>(d, desc_a, desc_b, scale_d);
+  else wgmma_m64n256<kTransA, kTransB>(d, desc_a, desc_b, scale_d);
 }
 
 }  // namespace sm90

@@ -3,7 +3,7 @@ strip the forward kernel to (``tools/kernel_diag.py`` and
 ``tools/fwd_ablate.py``), each as a plain PyTorch version and as one variant
 of the Hopper kernel ``csrc/dcn_ablate.cu``, which keeps one part of
 ``dcn_fwd`` as it runs on the card (its halo staging, its sampling producer,
-or its own stage pipeline of split-bf16 products on the tensor cores,
+or its own ring of split-bf16 products on the tensor cores,
 ``csrc/fwd_stages.cuh``, with another A-tile producer) so that its time is
 a part of ``dcn_fwd``'s.
 
@@ -61,7 +61,7 @@ def pick_tile_h(H: int) -> int:
 def ablate_tile_n(variant: str, Co: int) -> int:
     """Output channels a block of ``variant``'s products takes: dcn_fwd's
     tile (``fwd_tile_n``) for matmul, 64 for nomap and nobcast, whose halo
-    of x does not fit beside dcn_fwd's 128-channel stages."""
+    of x does not fit beside dcn_fwd's wider rings."""
     return 64 if variant in WINDOW else fwd_tile_n(Co)
 
 

@@ -91,6 +91,11 @@ _CHUNK = 64
 # bf16 parts of each f32 operand of dcn_fwd (csrc/dcn_fwd.cu's PARTS, which
 # its entry checks)
 FWD_PARTS = 3
+# the pixels a block of dcn_fwd's wide tile owns and the input channels of
+# a stage of its ring (csrc/fwd_stages.cuh's FwdTile<256>::kRows and
+# kImageChunk: one row of wgmma's 64-byte swizzle)
+FWD_WIDE_ROWS = 64
+_FWD_CHUNK = 32
 _MAX_MO_CO = 256
 # bf16 parts of z and W in dcn_bwd_dx (csrc/dcn_bwd_dx.cu's PARTS, which its
 # entry checks)
@@ -250,6 +255,17 @@ def swizzle_128b(t: torch.Tensor) -> torch.Tensor:
     return groups.gather(-2, src[..., None].expand(groups.shape)).flatten(-2)
 
 
+def swizzle_64b(t: torch.Tensor) -> torch.Tensor:
+    """Rows of 32 bf16 (..., R, 32) in wgmma's 64-byte swizzle
+    (``csrc/sm90_mma.cuh``): the 16-byte group j of row r moves to
+    j ^ ((r // 2) % 4).  Its own inverse."""
+    R = t.shape[-2]
+    groups = t.unflatten(-1, (4, 8))
+    r = torch.arange(R, device=t.device).view(R, 1)
+    src = torch.arange(4, device=t.device).view(1, 4) ^ ((r // 2) % 4)
+    return groups.gather(-2, src[..., None].expand(groups.shape)).flatten(-2)
+
+
 def _pad(t: torch.Tensor, dims: Dict[int, int]) -> torch.Tensor:
     """t zero-padded at the end of each dim to the given size."""
     pads = [0] * (2 * t.dim())
@@ -267,13 +283,18 @@ def _parts(w: torch.Tensor, parts: int, bf16_math: bool) -> torch.Tensor:
 
 
 def fwd_tile_n(Co: int) -> int:
-    """dcn_fwd's output channels per block: 128 where Co pads to a multiple
-    of 128, else 64."""
-    return 128 if math.ceil(Co / _CHUNK) % 2 == 0 else 64
+    """dcn_fwd's output channels per block: 256, the wide tile of
+    ``FWD_WIDE_ROWS`` pixels a block, where Co pads to a multiple of 256 (each
+    sampled A tile then feeds 256 output channels, in about as many blocks
+    as 128-pixel blocks of 128 channels: faster on the card at every such
+    shape of MonoFlex and FCOS3D, a 10-block grid too); else 128 where Co
+    pads to a multiple of 128; else 64 (both 128 pixels a block)."""
+    chunks = math.ceil(Co / _CHUNK)
+    return 256 if chunks % 4 == 0 else 128 if chunks % 2 == 0 else 64
 
 
 def fwd_image_numel(C: int, Co: int, bn: int) -> int:
-    return 9 * math.ceil(C / _CHUNK) * math.ceil(Co / bn) * FWD_PARTS * bn * _CHUNK
+    return 9 * math.ceil(C / _FWD_CHUNK) * math.ceil(Co / bn) * FWD_PARTS * bn * _FWD_CHUNK
 
 
 def dwmo_image_numel(C: int, Co: int) -> int:
@@ -344,16 +365,17 @@ DX_WIDE_MAX_REACH = 127
 
 
 def fwd_weight_image(weight: torch.Tensor, bn: int, bf16_math: bool = False) -> torch.Tensor:
-    """W (3,3,C,Co) as dcn_fwd's B operand: (9, ceil(C/64), Co_pad/bn, 3, bn,
-    64) bf16, each (tap, channel chunk, output-channel tile) one bulk copy of
-    its hi, mid and lo tiles, rows of output channels with 64 channels each,
-    zero-padded and swizzled.  The plain version of the layout kernel that
+    """W (3,3,C,Co) as dcn_fwd's B operand: (9, ceil(C/32), Co_pad/bn, 3,
+    bn, 32) bf16, each (tap, 32-channel chunk, output-channel tile) one bulk
+    copy of its hi, mid and lo tiles (one stage of the kernel's ring), rows
+    of output channels with 32 channels each, zero-padded and swizzled in
+    the 64-byte mode.  The plain version of the layout kernel that
     ``csrc/dcn_fwd.cu`` launches before the forward."""
     _, _, C, Co = weight.shape
-    cc, nt = math.ceil(C / _CHUNK), math.ceil(Co / bn)
-    w = _pad(weight.reshape(9, C, Co), {1: cc * _CHUNK, 2: nt * bn})
-    w = w.view(9, cc, _CHUNK, nt, bn).permute(0, 1, 3, 4, 2)        # (9, cc, nt, bn, 64)
-    return swizzle_128b(_parts(w, FWD_PARTS, bf16_math).permute(1, 2, 3, 0, 4, 5)).contiguous()
+    cc, nt = math.ceil(C / _FWD_CHUNK), math.ceil(Co / bn)
+    w = _pad(weight.reshape(9, C, Co), {1: cc * _FWD_CHUNK, 2: nt * bn})
+    w = w.view(9, cc, _FWD_CHUNK, nt, bn).permute(0, 1, 3, 4, 2)    # (9, cc, nt, bn, 32)
+    return swizzle_64b(_parts(w, FWD_PARTS, bf16_math).permute(1, 2, 3, 0, 4, 5)).contiguous()
 
 
 def dwmo_weight_image(weight: torch.Tensor, bf16_math: bool = False) -> torch.Tensor:
@@ -390,8 +412,9 @@ def _fwd_kernel(xt: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
                 bf16_math: bool = False, round_x: bool = False) -> torch.Tensor:
     """Launch dcn_fwd on x in its transfer dtype (bf16 under bf16 math), or
     on f32 x that the kernel rounds to bf16 as it loads it (``round_x``),
-    with the BN+ReLU epilogue when given (scale, shift); the caller has
-    checked the operands and counts the launch."""
+    with the BN+ReLU epilogue when given (scale, shift), at the tile
+    ``fwd_tile_n`` picks; the caller has checked the operands and counts the
+    launch."""
     B, H, W, C = xt.shape
     Co = weight.shape[3]
     if round_x and xt.dtype != torch.float32:
@@ -413,6 +436,13 @@ def _count(wrapper, bf16_math: bool) -> None:
         wrapper.bf16_math_launches += 1
     else:
         wrapper.launches += 1
+
+
+def _count_wide(wrapper, Co: int) -> None:
+    """``wrapper.wide_launches``: its dcn_fwd launches whose block covers 256
+    output channels (``fwd_tile_n``)."""
+    if fwd_tile_n(Co) == 256:
+        wrapper.wide_launches += 1
 
 
 def _math_x(x: torch.Tensor, bf16_math: bool) -> torch.Tensor:
@@ -571,6 +601,7 @@ class DCNFunction(torch.autograd.Function):
         else:
             out = _fwd_kernel(xt, offset, mask, weight, bias, max_offset, bf16_math=bf16_math)
             _count(dcn_forward, bf16_math)
+            _count_wide(dcn_forward, weight.shape[3])
         ctx.save_for_backward(xt, offset, mask, weight)
         ctx.max_offset = max_offset
         ctx.compute_dtype = compute_dtype
@@ -607,8 +638,9 @@ def dcn_forward(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     CUDA tensors go through the kernels, which take contiguous operands on
     one device, x cast to ``transfer_dtype`` (float32 or bfloat16; bfloat16
     under ``compute_dtype=bfloat16``, the bf16 window math; a bf16 x as it
-    is) and indices that fit in 32 bits.  ``max_offset`` must be a bound.  ``dcn_forward.launches`` (``.bf16_math_launches``)
-    counts forward kernel launches.
+    is) and indices that fit in 32 bits.  ``max_offset`` must be a bound.
+    ``dcn_forward.launches`` (``.bf16_math_launches``) counts forward kernel
+    launches, ``.wide_launches`` those (of either) on the wide tile.
     """
     check_dcn_inputs(x, offset, mask, weight, bias, x_dtypes=COMPUTE_DTYPES)
     _check_bounded(max_offset)
@@ -626,6 +658,7 @@ def dcn_forward(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
             out = _fwd_kernel(x, offset, mask, weight, bias, max_offset,
                               round_x=_rounds_x(x, transfer_dtype))
             dcn_forward.launches += 1
+            _count_wide(dcn_forward, weight.shape[3])
             return out
     return DCNFunction.apply(x, offset, mask, weight, bias, max_offset, transfer_dtype,
                              compute_dtype)
@@ -639,7 +672,8 @@ def dcn_forward_bn_relu(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tenso
     dcn_fwd's output write (``ops.dcn.modulated_deform_conv_bn_relu`` on a
     CPU tensor).  Inference only, as the JAX epilogue has no VJP: it raises
     if autograd would need a gradient of any operand.
-    ``dcn_forward_bn_relu.launches`` counts kernel launches."""
+    ``dcn_forward_bn_relu.launches`` counts kernel launches, ``.wide_launches``
+    those on the wide tile."""
     check_dcn_inputs(x, offset, mask, weight, None, x_dtypes=COMPUTE_DTYPES)
     check_epilogue(x, weight, scale, shift)
     _check_bounded(max_offset)
@@ -658,6 +692,7 @@ def dcn_forward_bn_relu(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tenso
     out = _fwd_kernel(x, offset, mask, weight, None, max_offset, epilogue=(scale, shift),
                       round_x=_rounds_x(x, transfer_dtype))
     dcn_forward_bn_relu.launches += 1
+    _count_wide(dcn_forward_bn_relu, weight.shape[3])
     return out
 
 
@@ -665,3 +700,4 @@ for _wrapper in (dcn_forward, dcn_bwd_dx, dcn_bwd_dwmo):
     _wrapper.launches = 0
     _wrapper.bf16_math_launches = 0
 dcn_forward_bn_relu.launches = 0
+dcn_forward.wide_launches = dcn_forward_bn_relu.wide_launches = 0

@@ -46,7 +46,7 @@ SEEN = "seen"        # a signature run once, eagerly
 
 _WRAPPERS = (dcn_cuda.dcn_forward, dcn_cuda.dcn_forward_bn_relu, dcn_cuda.dcn_bwd_dx,
              dcn_cuda.dcn_bwd_dwmo)
-_COUNTERS = ("launches", "bf16_math_launches")
+_COUNTERS = ("launches", "bf16_math_launches", "wide_launches")
 
 
 def _launch_counts() -> Dict[Tuple[object, str], int]:

@@ -21,7 +21,7 @@ import pytest
 import torch
 
 from monoflex_tpu_torch.ops.dcn_cuda import (dwmo_weight_image, fwd_tile_n, fwd_weight_image,
-                                             split_bf16, swizzle_128b)
+                                             split_bf16, swizzle_64b, swizzle_128b)
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402  (importing it runs nothing on a device)
@@ -120,10 +120,10 @@ def test_fwd_weight_image_holds_w(C, Co, bf16_math):
     w = gaussian(4, 3, 3, C, Co)
     bn = fwd_tile_n(Co)
     img = fwd_weight_image(w, bn, bf16_math)
-    cc, nt = -(-C // 64), -(-Co // bn)
-    assert img.shape == (9, cc, nt, 3, bn, 64) and img.dtype == torch.bfloat16
-    tiles = unswizzle(img).float()                       # (9, cc, nt, 3, bn, 64): [co][c]
-    full = tiles.permute(0, 3, 1, 5, 2, 4).reshape(9, 3, cc * 64, nt * bn)
+    cc, nt = -(-C // 32), -(-Co // bn)
+    assert img.shape == (9, cc, nt, 3, bn, 32) and img.dtype == torch.bfloat16
+    tiles = swizzle_64b(img).float()                     # (9, cc, nt, 3, bn, 32): [co][c]
+    full = tiles.permute(0, 3, 1, 5, 2, 4).reshape(9, 3, cc * 32, nt * bn)
     parts = split_bf16(w.reshape(9, C, Co), 3)
     assert torch.equal(full[:, 0, :C, :Co], parts[0].float())
     for p in (1, 2):
