@@ -14,7 +14,13 @@ Phases, one line each; any failure exits non-zero and prints no result:
              against the tolerance, ms per call of each, the tile of output
              channels (wide_launches counted where it is 256); then the same
              at batch 1 (a stream's frame) and at FCOS3D's six DCN shapes
-             (MODEL.META_ARCHITECTURE "FCOSMono3D" at 1600x900), batch 6.
+             (MODEL.META_ARCHITECTURE "FCOSMono3D" at 1600x900), batch 6;
+             then the multi-scale deformable attention kernel (msda_fwd)
+             against its plain op at BEVFormer-base's three families (2 BEV
+             queues of 200x200; six cameras' P3-P6 with the benchmark rig's
+             visibility mask; 900 decoder queries), bf16 values: error of
+             the RMS against the tolerance, two launches bit-equal, ms of
+             each beside the call's bound (mfbench/work_bevformer.py).
   4. slice   runs/monoflex.yaml at 384x1280, batch 8, seeded weights with the
              offset/mask convs perturbed off zero: one warm-up, then 3
              forward+decode passes that must launch the kernel 16 times each
@@ -207,6 +213,17 @@ FCOS3D_DCN_SHAPES = [
     ((15, 25, 256, 256), 2),
     ((8, 13, 256, 256), 2),
 ]
+# BEVFormer-base (MODEL.META_ARCHITECTURE "BEVFormer") on one nuScenes
+# sample, six 1600x900 cameras: its multi-scale deformable attention
+# (ops/msda.py) runs 18 times a forward, 6 at each family (the temporal
+# self-attention over 2 BEV queues of 200x200, the spatial cross-attention
+# over the cameras' P3-P6 with the rig's visibility mask, the decoder's 900
+# queries over the BEV); its outputs in bf16 are held to the plain op's f32
+# at one bf16 rounding of their RMS (tests/test_torch_msda_cuda.py)
+BEV_CAMS, BEV_H, BEV_W = 6, 900, 1600
+MSDA_TOL = 2 ** -8
+MSDA_PER_FORWARD = 18
+BEV_CALLS = (True, False, False, True, False, False, False, False)    # scene starts
 # the documented per-stage clamp TPU.DCN_MAX_OFFSET_PER_STAGE (monoflex_tpu/
 # config/defaults.py): its first stage, ida_0, runs at R = 8 at these shapes
 CLAMP_PER_STAGE = (8, 4, 2, 2)
@@ -489,6 +506,94 @@ def check_kernel(shapes=DCN_SHAPES, batch: int = BATCH) -> dict:
                     f"cast-then-kernel; wide_launches per forward {wide_per_forward(shapes)}")
     return {"max_abs_err": worst, "ms": ms_fwd, "plain_ms": plain_fwd, "bound_ms": bound_ms,
             "bound_by": bound_by}
+
+
+def bev_rig():
+    """(lidar2img (6, 4, 4), the pillar points' image locations (6, 40000,
+    4, 2), which cells each camera sees (6, 40000)) of the benchmark's
+    nuScenes rig (mfbench/traffic/camera_scenes.json) at 1600x900, padded to
+    928, by the plain BEVFormer's published point sampling."""
+    from mfbench.reference_bevformer import bevformer as plain
+    from mfbench.sources.camera_scene_batches import lidar2img
+    from mfbench.spec import data_file, load_json
+
+    traffic = load_json(data_file("traffic", "camera_scenes"))
+    l2i = torch.from_numpy(lidar2img(traffic["cameras"], traffic["mount"],
+                                     traffic["mount_down"], BEV_H, BEV_W))
+    ref_3d = plain.reference_points_3d(200, 200, plain.PC_RANGE[5] - plain.PC_RANGE[2])
+    cam, mask = plain.point_sampling(ref_3d, l2i, (-(-BEV_H // 32) * 32, BEV_W))
+    return l2i, cam[:, 0].contiguous(), mask[:, 0].any(-1)
+
+
+def check_msda() -> dict:
+    """msda_fwd against the plain op (ops/msda.py::msda_plain, f32) at
+    BEVFormer-base's three families, bf16 values and f32 locations and
+    weights as the model gives them: the relative error against MSDA_TOL,
+    two launches bit-equal, ms of each, and the work_bevformer bound of
+    each call and of the 18 calls of a forward."""
+    from mfbench import work_bevformer as W
+    from monoflex_tpu_torch.ops import msda
+
+    _, ref_cam, visible = bev_rig()
+    levels = W.level_shapes(BEV_H, BEV_W)
+    calls = W.msda_calls(levels, BEV_CAMS, int(visible.sum()))
+    families = {"tsa": calls[0], "sca": calls[1], "decoder": calls[-1]}
+    per_forward = {k: sum(c == v for c in calls) for k, v in families.items()}
+    worst = worst_rel = ms = plain_ms = bound = 0.0
+    for i, (name, call) in enumerate(families.items()):
+        g = torch.Generator(device="cuda").manual_seed(100 + i)
+        G, Q, L, P, A = (call[k] for k in ("groups", "queries", "levels", "points", "anchors"))
+        shapes = levels if name == "sca" else [(200, 200)]
+        value = torch.randn(G, call["keys"], 8, 32, device="cuda", generator=g).to(torch.bfloat16)
+        if name == "sca":
+            ref = ref_cam.to("cuda")
+        elif name == "tsa":
+            ys, xs = torch.meshgrid((torch.arange(200, device="cuda") + 0.5) / 200,
+                                    (torch.arange(200, device="cuda") + 0.5) / 200, indexing="ij")
+            ref = torch.stack([xs.flatten(), ys.flatten()], -1)[None, :, None].repeat(G, 1, 1, 1)
+            ref[0] += 0.01      # the first queue's shifted points
+        else:
+            ref = torch.rand(G, Q, A, 2, device="cuda", generator=g)
+        # a few cells or pixels about the reference points, as the seeded weights spread them
+        offsets = torch.randn(Q, 8, call["offset_groups"], L, P, 2, device="cuda",
+                              generator=g) * 2
+        weights = torch.rand(Q, 8, call["weight_groups"], L, P, device="cuda", generator=g)
+        weights = weights / weights.sum((-1, -2), keepdim=True)
+        mask = visible.to("cuda") if call["masked"] else None
+        scale = 0.5 if name == "tsa" else 1.0
+        args = (value, shapes, ref, offsets, weights, mask, scale)
+        before = msda.msda_forward.launches
+        got = msda.msda_forward(*args)
+        torch.cuda.synchronize()
+        if msda.msda_forward.launches != before + 1 or got.dtype != torch.bfloat16:
+            raise AssertionError(f"msda_fwd {name}: launches moved by "
+                                 f"{msda.msda_forward.launches - before}, dtype {got.dtype}")
+        want = msda.msda_plain(*args, out_dtype=torch.float32)
+        rms = float(want.square().mean().sqrt())
+        err = float((got.float() - want).abs().max())
+        rel = err / rms / max(1.0, float(want.abs().max()) / rms)
+        if not (rel < MSDA_TOL and torch.isfinite(got).all()):
+            raise AssertionError(f"msda_fwd {name}: error {rel:.3e} of the RMS > {MSDA_TOL}")
+        if not torch.equal(got, msda.msda_forward(*args)):
+            raise AssertionError(f"msda_fwd {name}: two launches differ")
+        k_ms, p_ms = time_ms(lambda: msda.msda_forward(*args), 20), time_ms(
+            lambda: msda.msda_plain(*args), 3)
+        b_ms = W.bound_s(W.msda_work(call)) * 1e3
+        n = per_forward[name]
+        worst, worst_rel = max(worst, err), max(worst_rel, rel)
+        ms, plain_ms, bound = ms + n * k_ms, plain_ms + n * p_ms, bound + n * b_ms
+        phase("kernel", f"msda_fwd {name} groups={G} keys={call['keys']} queries={Q} levels={L} "
+                        f"points={P} pairs={call['pairs']} calls={n}: max_abs_err={err:.3e} "
+                        f"({rel:.3e} of the RMS, tol {MSDA_TOL:.3e}) kernel_ms={k_ms:.4f} "
+                        f"plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} "
+                        f"({100 * b_ms / k_ms:.2f}% of the roofline)")
+        del value, ref, offsets, weights, mask, args, got, want
+    torch.cuda.empty_cache()
+    phase("kernel", f"msda_fwd per forward ({sum(per_forward.values())} calls): kernel_ms={ms:.4f} "
+                    f"plain_ms={plain_ms:.4f} bound_ms={bound:.4f} "
+                    f"({100 * bound / ms:.2f}% of the roofline; bytes at the memory rate)")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "bytes"}
 
 
 @torch.no_grad()
@@ -1061,6 +1166,104 @@ def run_eval() -> dict:
                       f"(depth_err/direct {diag['depth_err/direct']:.4f}, dis_iou/pred_IoU "
                       f"{diag['dis_iou/pred_IoU']:.4f})")
     return launches["b"]
+
+
+def run_bevformer() -> dict:
+    """BEVFormer-base's evaluation path (bf16, seeded weights, the
+    benchmark's rig): make_eval_step's graphed forward and NMS-free decode
+    over BEV_CALLS, scene starts and calls with the history; each forward
+    launches msda_fwd 18 times (the counter zeroed first) and never the
+    plain op; one capture, every later call a replay; the history counters;
+    finite (1, 300, 11) rows; a replayed call with the history against the
+    eager forward from the same history; ms a call and the peak memory."""
+    from monoflex_tpu_torch.decode.postprocessor import build_postprocessor
+    from monoflex_tpu_torch.ops import msda
+    from monoflex_tpu_torch.utils import trace
+
+    cfg = get_cfg_defaults()
+    cfg.merge_from_list(["MODEL.META_ARCHITECTURE", "BEVFormer", "MODEL.BACKBONE.CONV_BODY",
+                         "R-101", "INPUT.PIXEL_MEAN", "[0.406, 0.456, 0.485]",
+                         "INPUT.PIXEL_STD", f"[{1 / 255!r}, {1 / 255!r}, {1 / 255!r}]",
+                         "INPUT.TO_BGR", "True", "DATALOADER.SIZE_DIVISIBILITY", "32",
+                         "TPU.COMPUTE_DTYPE", "bfloat16"])
+    model = build_model(cfg, device="cuda", seed=5)
+    l2i = bev_rig()[0].to("cuda")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    images = [torch.randint(0, 256, (BEV_CAMS, BEV_H, BEV_W, 3), device="cuda", generator=g,
+                            dtype=torch.uint8) for _ in range(2)]
+
+    def batch(i: int, start: bool) -> dict:
+        bus = torch.zeros(18, device="cuda")
+        if not start:      # 4 m along the heading and a 1.5 degree turn since the last sample
+            bus[0], bus[1], bus[17] = 4.0, 0.3, 1.5
+        bus[16] = 0.2 * i
+        return {"image": images[i % 2], "lidar2img": l2i, "can_bus": bus,
+                "scene_start": torch.tensor([start], device="cuda")}
+
+    step = make_eval_step(model, build_postprocessor(cfg))
+    plain_calls = [0]
+    plain = msda.msda_plain
+
+    def counted(*a, **k):
+        plain_calls[0] += 1
+        return plain(*a, **k)
+
+    msda.msda_plain = counted
+    msda.msda_forward.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    trace.drain()
+    trace.on()
+    times, checked = [], None
+    try:
+        for i, start in enumerate(BEV_CALLS):
+            b = batch(i, start)
+            prev = model.prev_bev.clone()
+            t0 = time.perf_counter()
+            rows, valid, extras = step(b)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if tuple(rows.shape) != (1, 300, 11) or not torch.isfinite(rows).all():
+                raise AssertionError(f"bevformer call {i}: rows {tuple(rows.shape)}, finite "
+                                     f"{bool(torch.isfinite(rows).all())}")
+            if checked is None and i >= 2 and not start:
+                after = model.prev_bev.clone()
+                model.prev_bev.copy_(prev)
+                with torch.inference_mode():
+                    want = model(b["image"], l2i, b["can_bus"], b["scene_start"])
+                checked = max(float((extras[k].float() - want[k].float()).abs().max()
+                                    / want[k].float().abs().max()) for k in ("bev", "cls", "boxes"))
+                model.prev_bev.copy_(after)
+                msda.msda_forward.launches -= MSDA_PER_FORWARD
+    finally:
+        trace.off()
+        msda.msda_plain = plain
+    counters = trace.drain().counters
+    n = len(BEV_CALLS)
+    launches = msda.msda_forward.launches
+    starts = sum(BEV_CALLS)
+    want_counts = {"eval_step.graph_captures": 1, "eval_step.graph_replays": n - 1,
+                   "bev.scene_starts": starts, "bev.history_used": n - starts}
+    got_counts = {k: counters.get(k, 0) for k in want_counts}
+    if launches != MSDA_PER_FORWARD * n or plain_calls[0] or got_counts != want_counts:
+        raise AssertionError(f"bevformer: msda_fwd launches {launches} (want "
+                             f"{MSDA_PER_FORWARD * n}), plain op calls {plain_calls[0]}, "
+                             f"counters {got_counts} (want {want_counts})")
+    if checked is None or not checked < 1e-3:
+        raise AssertionError(f"bevformer: a replay against the eager forward {checked}")
+    replayed = times[2:]
+    ms = 1e3 * sum(replayed) / len(replayed)
+    phase("bevformer", f"{n} calls of one sample (6x1600x900, bf16), scene starts at "
+                       f"{[i for i, s in enumerate(BEV_CALLS) if s]}: msda_fwd launches "
+                       f"{launches} ({launches // n} a forward), plain op calls 0; counters "
+                       + " ".join(f"{k}={v}" for k, v in got_counts.items())
+                       + f"; a replay with history against the eager forward {checked:.3e} "
+                       f"of max |eager|; replayed call {ms:.2f} ms ({6e3 / ms:.2f} img/s, "
+                       f"decode and copies included); first (eager) {1e3 * times[0]:.1f} ms, "
+                       f"capture {1e3 * times[1]:.1f} ms; peak memory "
+                       f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    del model, step, images
+    torch.cuda.empty_cache()
+    return {"launches": launches}
 
 
 def check_ablate() -> dict:
@@ -2262,6 +2465,8 @@ def main() -> None:
         fwd = check_kernel()
         check_kernel(DCN_SHAPES, 1)
         check_kernel(FCOS3D_DCN_SHAPES, FCOS3D_BATCH)
+    with watchdog("kernel", 300):
+        msda_fwd = check_msda()
     with watchdog("slice", 240):
         slice_launches = run_slice()["launches"]
     with watchdog("bwd", 300):
@@ -2271,6 +2476,8 @@ def main() -> None:
     with watchdog("eval", 400):
         epilogue = check_epilogue()
         fused_launches = run_eval()
+    with watchdog("bevformer", 300):
+        bevformer = run_bevformer()
     with watchdog("diag", 600):
         diag = run_diag()
     with watchdog("configs", 300):
@@ -2289,7 +2496,8 @@ def main() -> None:
                     f"dcn_fwd={configs['guard']}"
                     + "; the kernels line counts the trainer phase's launches (its three CLI "
                     "runs) for dcn_fwd, dcn_bwd_dx and dcn_bwd_dwmo, the fused eval run's for "
-                    "dcn_fwd_bn_relu, and the diag tools' for the rest")
+                    "dcn_fwd_bn_relu, the bevformer phase's for msda_fwd, and the diag tools' "
+                    "for the rest")
 
     kernels = [
         dict(name="dcn_fwd", source="monoflex_tpu_torch/csrc/dcn_fwd.cu",
@@ -2300,9 +2508,12 @@ def main() -> None:
              replaces="monoflex_tpu/ops/dcn_pallas_v3.py:747", **bwd["dwmo"]),
         dict(name="dcn_fwd_bn_relu", source="monoflex_tpu_torch/csrc/dcn_fwd.cu",
              replaces="monoflex_tpu/ops/dcn_pallas_v3.py:155 (epilogue)", **epilogue),
+        dict(name="msda_fwd", source="monoflex_tpu_torch/csrc/msda/msda_fwd.cu",
+             replaces="none (the JAX package has no deformable attention)", **msda_fwd),
     ]
     launches = {**{k: trainer[k] for k in ("dcn_fwd", "dcn_bwd_dx", "dcn_bwd_dwmo")},
-                "dcn_fwd_bn_relu": fused_launches["dcn_forward_bn_relu"]}
+                "dcn_fwd_bn_relu": fused_launches["dcn_forward_bn_relu"],
+                "msda_fwd": bevformer["launches"]}
     diag_sources = {"dcn_fwd[bf16 math]": ("dcn_fwd.cu", "monoflex_tpu/ops/dcn_pallas.py:112"),
                     "dcn_bwd_dx[bf16 math]": ("dcn_bwd_dx.cu",
                                               "monoflex_tpu/ops/dcn_pallas_bwd.py:242"),

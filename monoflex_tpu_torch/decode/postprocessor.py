@@ -202,9 +202,14 @@ class PostProcessor:
 
 def build_postprocessor(cfg):
     """The decode of ``MODEL.META_ARCHITECTURE``'s head maps: ``PostProcessor``
-    for MonoFlex, ``decode/fcos3d.py::FCOS3DDecoder`` for FCOSMono3D."""
+    for MonoFlex, ``decode/fcos3d.py::FCOS3DDecoder`` for FCOSMono3D,
+    ``decode/bevformer.py::BEVFormerDecoder`` for BEVFormer."""
     if cfg.MODEL.META_ARCHITECTURE == "FCOSMono3D":
         from .fcos3d import FCOS3DDecoder
 
         return FCOS3DDecoder()
+    if cfg.MODEL.META_ARCHITECTURE == "BEVFormer":
+        from .bevformer import BEVFormerDecoder
+
+        return BEVFormerDecoder()
     return PostProcessor(cfg)

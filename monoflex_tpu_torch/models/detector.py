@@ -1,7 +1,9 @@
 """Detector shells: on-device normalize -> backbone -> predictor (counterpart of
-``monoflex_tpu/models/detector.py``), and FCOS3D (``FCOSMono3D``: normalize
-and pad -> caffe ResNet -> FPN -> the five-level head), which the JAX
-package does not have.  ``MODEL.META_ARCHITECTURE`` chooses one.
+``monoflex_tpu/models/detector.py``), FCOS3D (``FCOSMono3D``: normalize
+and pad -> caffe ResNet -> FPN -> the five-level head) and BEVFormer
+(``bevformer.py``: the same trunk and an FPN to P6 under a spatiotemporal
+BEV transformer), which the JAX package does not have.
+``MODEL.META_ARCHITECTURE`` chooses one.
 
 Input images are NHWC as in the JAX package: uint8 is normalized here
 (/255, optional BGR flip, mean/std), anything else is taken as already
@@ -13,12 +15,13 @@ contiguous per pixel) and the one cuDNN prefers.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from ..utils.precision import apply_precision, compute_dtype, resolve_precision
+from . import bevformer
 from .backbone.dla import DCN, BilinearUp, build_backbone, resolve_dcn_spec
 from .backbone.resnet import ResNetCaffe
 from .fpn import FPN
@@ -26,7 +29,8 @@ from .heads.fcos3d import STRIDES, FCOS3DHead
 from .heads.predictor import Predictor, build_predictor
 from .layers import set_compute_dtype
 
-META_ARCHITECTURES = ("MonoFlex", "FCOSMono3D")
+META_ARCHITECTURES = ("MonoFlex", "FCOSMono3D", "BEVFormer")
+RESNET_ARCHITECTURES = ("FCOSMono3D", "BEVFormer")
 
 
 def normalize(images: torch.Tensor, mean: torch.Tensor, std: torch.Tensor,
@@ -63,6 +67,10 @@ class MonoFlex(nn.Module):
         self.pixel_mean.copy_(torch.tensor(self.mean_std[0]))
         self.pixel_std.copy_(torch.tensor(self.mean_std[1]))
 
+    def graph_inputs(self, batch: Dict[str, torch.Tensor]) -> Tuple[Optional[torch.Tensor], ...]:
+        """The forward's inputs from an evaluation batch."""
+        return batch["image"], batch.get("edge_indices"), batch.get("edge_len")
+
     def forward(self, images: torch.Tensor, edge_indices: Optional[torch.Tensor] = None,
                 edge_len: Optional[torch.Tensor] = None) -> Dict[str, object]:
         images = normalize(images, self.pixel_mean, self.pixel_std, self.to_bgr)
@@ -97,6 +105,13 @@ class FCOSMono3D(MonoFlex):
 def require_trainable(arch: str) -> None:
     """Raise unless the training entry points can train the meta-architecture
     ``arch`` (the config's ``MODEL.META_ARCHITECTURE``)."""
+    if arch == "BEVFormer":
+        raise NotImplementedError(
+            "MODEL.META_ARCHITECTURE 'BEVFormer' runs on the evaluation path only "
+            "(build_model, make_eval_step): its training (a queue of history frames run "
+            "without gradients, Hungarian matching, focal and L1 losses, a backward of the "
+            "multi-scale deformable attention, dcn_bwd_dwmo at 512 channels) is not ported "
+            "(ROADMAP F11)")
     if arch != "MonoFlex":
         raise NotImplementedError(
             f"MODEL.META_ARCHITECTURE {arch!r} runs on the evaluation path only "
@@ -145,18 +160,23 @@ def build_model(cfg, device="cuda", seed: int = 0, use_dcn_kernel: bool = True) 
                         pixel_std=tuple(cfg.INPUT.PIXEL_STD), to_bgr=bool(cfg.INPUT.TO_BGR))
     with torch.device("meta"):
         backbone = build_backbone(cfg, use_dcn_kernel)
-        if isinstance(backbone, ResNetCaffe) != (arch == "FCOSMono3D"):
+        if isinstance(backbone, ResNetCaffe) != (arch in RESNET_ARCHITECTURES):
             raise NotImplementedError(
                 f"MODEL.META_ARCHITECTURE {arch!r} does not take MODEL.BACKBONE.CONV_BODY "
-                f"{cfg.MODEL.BACKBONE.CONV_BODY!r}: FCOSMono3D takes the ResNets, MonoFlex the "
-                f"DLA trunks")
+                f"{cfg.MODEL.BACKBONE.CONV_BODY!r}: FCOSMono3D and BEVFormer take the ResNets, "
+                f"MonoFlex the DLA trunks")
         if arch == "MonoFlex":
             model = MonoFlex(backbone, build_predictor(cfg, in_channels=backbone.out_channels),
                              **normalize_kw)
-        else:
+        elif arch == "FCOSMono3D":
             model = _fcos3d(cfg, backbone, use_dcn_kernel, normalize_kw)
+        else:
+            model = _bevformer(cfg, backbone, normalize_kw)
     model = model.to_empty(device=device)
-    init_parameters(model, torch.Generator().manual_seed(seed))
+    if arch == "BEVFormer":
+        bevformer.init_weights(model, seed)
+    else:
+        init_parameters(model, torch.Generator().manual_seed(seed))
     model.precision = precision
     return model.to(memory_format=torch.channels_last).eval()
 
@@ -170,3 +190,13 @@ def _fcos3d(cfg, backbone: nn.Module, use_dcn_kernel: bool, normalize_kw: Dict) 
     for m in [fpn, *head.towers()]:
         set_compute_dtype(m, dtype)
     return FCOSMono3D(backbone, fpn, head, int(cfg.DATALOADER.SIZE_DIVISIBILITY), **normalize_kw)
+
+
+def _bevformer(cfg, backbone: nn.Module, normalize_kw: Dict) -> bevformer.BEVFormer:
+    """BEVFormer-base on ``cfg``'s trunk (``MODEL.BACKBONE.CONV_BODY``
+    "R-101"): the FPN to P6 and the transformer in the compute dtype."""
+    fpn = FPN(backbone.out_channels, extra=1)
+    model = bevformer.BEVFormer(backbone, fpn, int(cfg.DATALOADER.SIZE_DIVISIBILITY),
+                                **normalize_kw)
+    model.set_compute_dtype(compute_dtype(cfg))
+    return model

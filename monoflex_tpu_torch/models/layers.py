@@ -56,3 +56,24 @@ def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> None:
     for m in module.modules():
         if hasattr(m, "compute_dtype"):
             m.compute_dtype = dtype
+
+
+class Linear(nn.Linear):
+    """A dense layer in ``compute_dtype``: input, kernel and bias cast to it
+    (a bf16 product accumulates in f32 and rounds its output to bf16)."""
+    compute_dtype = torch.float32
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt),
+                        None if self.bias is None else self.bias.to(dt))
+
+
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm with its statistics and normalisation in f32, its output
+    cast once to ``compute_dtype``."""
+    compute_dtype = torch.float32
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias,
+                            self.eps).to(self.compute_dtype)

@@ -1,24 +1,28 @@
 """The eval forward as CUDA graphs, one per input signature (the shared
 rules are ``graphs.py``'s).
 
-``GraphedForward(model)(image, edge_indices, edge_len)`` puts ``model`` in
-eval mode and returns what ``model(image, edge_indices, edge_len)``
-returns.  On the card the forward is a chain of some 700 small launches
-(cuDNN convolutions, BN, activations, the 16 ``dcn_fwd`` launches and their
-weight layouts, the head towers) that the host issues more slowly than the
-card runs them.
+``GraphedForward(model)(*inputs)`` puts ``model`` in eval mode and returns
+what ``model(*inputs)`` returns: MonoFlex and FCOS3D take (image,
+edge_indices, edge_len), BEVFormer (images, lidar2img, can_bus,
+scene_start) (each model's ``graph_inputs``).  On the card the forward is a
+chain of hundreds of small launches (cuDNN convolutions, BN, activations,
+the DCN and deformable-attention kernels, the head towers) that the host
+issues more slowly than the card runs them.
 
 A call is graphable when it runs under ``torch.inference_mode`` on inputs
 on one CUDA device, and no module has a forward hook.  Its signature is the
-shape and dtype of the three inputs (None for an absent edge input), their
-device, the DCN specs and the parameters' and buffers' addresses.  The
-capture warms up on the side stream, copies the inputs into static buffers
-and captures into the graph's private memory pool (all the forward's
-scratch, ``dcn_fwd``'s weight image and output included); a replay copies
-the inputs in.  The outputs are the graph's own tensors, rewritten by the
-next replay, so a caller keeps none of them (``own`` copies what it
-returns).  ``MAX_GRAPHS`` signatures are kept: a KITTI evaluation needs two
-(the batch and the last, shorter one).  Counters: ``eval_step.graph_*``.
+shape and dtype of each input (None for an absent one), their device, the
+DCN specs and the parameters' and buffers' addresses.  The capture warms up
+on the side stream, copies the inputs into static buffers and captures into
+the graph's private memory pool (all the forward's scratch, ``dcn_fwd``'s
+weight image and output included); a replay copies the inputs in.  State
+that a forward reads and overwrites in place (the model's ``carried()``:
+BEVFormer's BEV history) is put back after the warm-up, so the call that
+captures reads what an eager call would.  The outputs are the graph's own
+tensors, rewritten by the next replay, so a caller keeps none of them
+(``own`` copies what it returns).  ``MAX_GRAPHS`` signatures are kept: a
+KITTI evaluation needs two (the batch and the last, shorter one).
+Counters: ``eval_step.graph_*``.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ MAX_GRAPHS = 4
 
 logger = logging.getLogger("monoflex.eval_graph")
 
-Inputs = Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]
+Inputs = Tuple[Optional[torch.Tensor], ...]
 
 
 def _tensors(obj) -> List[torch.Tensor]:
@@ -89,9 +93,7 @@ class GraphedForward:
         self.cache = GraphCache("eval_step", MAX_GRAPHS, logger)
         self._last: frozenset = frozenset()   # storages of the last call's outputs, if a graph's
 
-    def __call__(self, image: torch.Tensor, edge_indices: Optional[torch.Tensor] = None,
-                 edge_len: Optional[torch.Tensor] = None):
-        inputs = (image, edge_indices, edge_len)
+    def __call__(self, *inputs: Optional[torch.Tensor]):
         self._last = frozenset()
         walked = walk(self.model) if graphable(inputs) else None
         if walked is None:
@@ -105,7 +107,8 @@ class GraphedForward:
         key = _key(inputs, specs, ptrs)
         entry = self.cache.get(key)
         if entry is SEEN:
-            entry = self.cache.capture(key, image.device, self._warm_up, self._record, inputs)
+            entry = self.cache.capture(key, inputs[0].device, self._warm_up, self._record,
+                                       inputs)
         if entry is None:
             self.cache.seen(key)
         elif entry is not EAGER:
@@ -132,11 +135,16 @@ class GraphedForward:
                      for r in results)
 
     def _warm_up(self, stream: torch.cuda.Stream, inputs: Inputs) -> Inputs:
-        """One forward on the capture's stream; the static inputs."""
+        """One forward on the capture's stream, the carried state put back
+        after it; the static inputs."""
         current = torch.cuda.current_stream(inputs[0].device)
         stream.wait_stream(current)
+        carried = getattr(self.model, "carried", list)()
         with torch.cuda.stream(stream):
+            saved = [t.clone() for t in carried]
             self.model(*inputs)
+            for t, old in zip(carried, saved):
+                t.copy_(old)
         current.wait_stream(stream)
         return tuple(None if t is None else torch.empty_like(t) for t in inputs)
 

@@ -22,8 +22,8 @@ optimizer ``DeviceUpdate`` refuses) leaves its signature eager, counted in
 ``<prefix>.graph_fallbacks`` (the cache's first fallback logged).
 Counters (``utils/trace.py``): ``<prefix>.graph_captures``,
 ``.graph_replays`` (the capture's own included) and ``.graph_fallbacks``.
-The DCN wrappers' launch counters (``ops/dcn_cuda.py``) count one call's
-launches a call, as in eager mode: each replay adds what the capture
+The kernel wrappers' launch counters (``ops/dcn_cuda.py``, ``ops/msda.py``)
+count one call's launches a call, as in eager mode: each replay adds what the capture
 launched, and the capture's own launches are taken back.
 """
 
@@ -38,14 +38,14 @@ from torch import nn
 from torch.nn.modules import module as _module
 
 from ..models.backbone.dla import DCN
-from ..ops import dcn_cuda
+from ..ops import dcn_cuda, msda
 from ..utils import trace
 
 EAGER = "eager"      # a signature whose capture failed
 SEEN = "seen"        # a signature run once, eagerly
 
 _WRAPPERS = (dcn_cuda.dcn_forward, dcn_cuda.dcn_forward_bn_relu, dcn_cuda.dcn_bwd_dx,
-             dcn_cuda.dcn_bwd_dwmo)
+             dcn_cuda.dcn_bwd_dwmo, msda.msda_forward)
 _COUNTERS = ("launches", "bf16_math_launches", "wide_launches")
 
 

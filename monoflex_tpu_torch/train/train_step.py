@@ -129,19 +129,21 @@ def make_eval_step(model: nn.Module, post_processor
     valid (B, K), extras): the model in eval mode under
     ``torch.inference_mode``, then the decode, whose rows are its own: D = 14
     and K = TEST.DETECTIONS_PER_IMG from ``PostProcessor``, D = ``ROW`` (12)
-    and K = ``MAX_PER_IMG`` (200) from ``decode/fcos3d.py::FCOS3DDecoder``
+    and K = ``MAX_PER_IMG`` (200) from ``decode/fcos3d.py::FCOS3DDecoder``,
+    D = 11 and K = 300 from ``decode/bevformer.py::BEVFormerDecoder``
     (``decode/postprocessor.py::build_postprocessor`` picks the config's).
-    ``batch`` holds tensors on the model's device.  On the card the forward replays a CUDA graph per
+    The forward takes the model's ``graph_inputs(batch)``.  ``batch`` holds tensors on the model's device.  On the card the forward replays a CUDA graph per
     input signature (``eval_graph.py``); nothing returned shares its memory.
     The precision flags of ``model``'s config are applied here."""
     use_model_precision(model)
     forward = GraphedForward(model)
+    graph_inputs = getattr(model, "graph_inputs", None) or (
+        lambda b: (b["image"], b.get("edge_indices"), b.get("edge_len")))
 
     def eval_step(batch: Tensors, output_depth: Optional[str] = None):
         with torch.inference_mode():
             with span("eval_step.forward"):
-                outputs = forward(batch["image"], batch.get("edge_indices"),
-                                  batch.get("edge_len"))
+                outputs = forward(*graph_inputs(batch))
             with span("eval_step.decode"):
                 return forward.own(*post_processor(outputs, batch, output_depth=output_depth))
 

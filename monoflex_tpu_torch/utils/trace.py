@@ -3,7 +3,9 @@
 ``span(name)`` times a block and records a ``Span`` (name, start, end,
 parent, thread): the parent is the name of the span open around it on the
 same thread (a stack per thread), the thread its thread's name.
-``add(name, n)`` adds to a counter.  Both are kept in memory until
+``add(name, n)`` adds to a counter; ``add_on_device(name, t)`` adds the sum
+of a device tensor to one without waiting for the card (the sum stays on
+the device, and ``drain()`` reads it).  Both are kept in memory until
 ``drain()`` returns them and starts afresh.  Names are dotted by layer
 (``train_step.optimizer``, ``loader.wait``, ``to_device.bytes``).
 
@@ -103,6 +105,7 @@ class Tracer:
         self.enabled = False
         self.spans: List[tuple] = []
         self.counters: Dict[str, int] = {}
+        self.device_counters: Dict[str, torch.Tensor] = {}
         self.anchor: Optional[float] = None
         self._anchored = False
         self._lock = threading.Lock()
@@ -124,6 +127,14 @@ class Tracer:
         with self._lock:
             self.counters[name] = self.counters.get(name, 0) + n
 
+    def add_on_device(self, name: str, t: torch.Tensor) -> None:
+        if not (self.enabled or _profiler._is_profiler_enabled):
+            return
+        n = t.detach().sum(dtype=torch.int64)
+        with self._lock:
+            acc = self.device_counters.get(name)
+            self.device_counters[name] = n if acc is None else acc + n
+
     def on(self) -> None:
         self.enabled = True
         self.anchor, self._anchored = None, False
@@ -135,8 +146,11 @@ class Tracer:
     def drain(self) -> Drained:
         with self._lock:
             spans, counters, anchor = self.spans, self.counters, self.anchor
-            self.spans, self.counters = [], {}
+            on_device = self.device_counters
+            self.spans, self.counters, self.device_counters = [], {}, {}
             self.anchor, self._anchored = None, False
+        for name, n in on_device.items():
+            counters[name] = counters.get(name, 0) + int(n)      # waits for the card
         return Drained([Span._make(t) for t in spans], counters, anchor)
 
     def _take_anchor(self) -> None:
@@ -157,6 +171,7 @@ class Tracer:
 TRACER = Tracer()
 span = TRACER.span
 add = TRACER.add
+add_on_device = TRACER.add_on_device
 on = TRACER.on
 off = TRACER.off
 drain = TRACER.drain

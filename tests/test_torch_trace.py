@@ -1,6 +1,7 @@
 """The port's tracer (``utils/trace.py``) and its spans at the layer
 boundaries: nesting and parents, a stack per thread, nothing recorded and
-no clock read while off, counters, ``drain()``, recording while
+no clock read while off, counters (and those summed on the device),
+``drain()``, recording while
 torch.profiler records; the order of a CPU train step's spans (``restore``
 only on a non-finite step), the eval step's two spans, the loader's spans
 from its producer thread, ``to_device``'s bytes, and the trainer's meters
@@ -115,6 +116,19 @@ def test_counters_add_up_across_threads():
     t.add("d")
     got = t.drain()
     assert got.counters == {"c": 2 * n_threads * n_adds, "d": 1}
+
+
+def test_device_counters_sum_until_drain():
+    t = trace.Tracer()
+    t.add_on_device("used", torch.tensor([1], dtype=torch.int32))      # off: not counted
+    t.on()
+    t.add("used", 2)
+    for flag in (1, 0, 1):
+        t.add_on_device("used", torch.tensor([flag], dtype=torch.int32))
+    t.add_on_device("pairs", torch.tensor([True, True, False]))
+    assert t.counters == {"used": 2} and set(t.device_counters) == {"used", "pairs"}
+    assert t.drain().counters == {"used": 4, "pairs": 2}
+    assert t.drain().counters == {} and t.device_counters == {}
 
 
 def test_drain_returns_and_clears():
